@@ -1,0 +1,186 @@
+"""The port's train step against the JAX package's ``make_train_step``:
+generator with point head (``d4aux``: the Chamfer loss without D4) + D1 + D2
+over three steps, the padded-tail path, dropout, lr and config checks.
+
+Both packages start from the same weights (the port's init, carried into
+flax by the JAX package's own importer of reference checkpoints,
+``pointcloududa_tpu/utils/torch_import.py``) and step on the same synthetic
+batches. Continuous metrics must agree at the tolerance of
+tests/test_step_parity_torch.py (rtol 2e-3, atol 2e-4: f32 sums in another
+order in two frameworks, compounded over the optimiser steps). Threshold
+metrics (the discriminators' accuracies, fractions of patch logits >= 0) may
+differ by two flipped decisions: a logit within fp noise of 0 lands on
+either side. D4 is held in tests/test_torch_port_step_d4.py,
+which says why.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pointcloududa_tpu.config import mscmrseg_default
+from pointcloududa_tpu.data.synthetic import synthetic_batch
+from pointcloududa_tpu.train import state as jstate
+from pointcloududa_tpu.train import step as jstep
+from pointcloududa_tpu.utils import torch_import
+from pointcloududa_torch.models.unet import Dropout
+from pointcloududa_torch.train.state import create_train_state, get_generator_lr, set_generator_lr
+from pointcloududa_torch.train.step import make_train_step
+
+BS = 4
+RTOL, ATOL = 2e-3, 2e-4
+IMPLS = [dict(chamfer_impl="pallas", bn_stats_impl="pallas"), dict(chamfer_impl="jnp", bn_stats_impl="xla")]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for torch while a module of port tests runs: the
+    test workers share the CPU cores, and OpenMP threads that spin while they
+    wait take those cores from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfg(**kw):
+    base = dict(d1=True, d2=True, filters=8, crop_size=96, fc_inch=1, bs=BS, num_devices=1)
+    base.update(kw)
+    return mscmrseg_default(**base)
+
+
+_IMPORTERS = (torch_import.generator_variables, torch_import.discriminator_variables,
+              torch_import.discriminator_variables, torch_import.pointnetcls_variables)
+
+
+def _jax_state(cfg, models, seed):
+    """The JAX package's initial train state holding the weights of the
+    port's ``models``. ``eval_shape`` traces the JAX init for the tree to
+    fill (compiling it would cost tens of seconds on the CPU)."""
+    key = jax.random.PRNGKey(seed)
+    template = jax.eval_shape(lambda k: jstate.create_train_state(cfg, k), key)
+    nets = []
+    for module, net, tx, importer in zip(
+        models, (template.gen, template.d1, template.d2, template.d4), jstate.build_optimizers(cfg), _IMPORTERS
+    ):
+        if module is None:
+            nets.append(None)
+            continue
+        v = importer(module.state_dict(), {"params": net.params, "batch_stats": net.batch_stats})
+        v = jax.tree_util.tree_map(jnp.array, v)  # copies: the port updates its tensors in place
+        nets.append(jstate.NetState(params=v["params"], batch_stats=v.get("batch_stats", {}),
+                                    opt_state=tx.init(v["params"])))
+    return jstate.UDATrainState(*nets, step=jnp.zeros((), jnp.int32), rng=key)
+
+
+def _steps(cfg, seed=0):
+    """(JAX step, JAX state, port state, port step) from the same weights,
+    the port's init from ``seed``; D4, where enabled, without dropout in
+    both."""
+    st = create_train_state(cfg, seed=seed)
+    models = list(jstate.build_models(cfg))
+    if cfg.d4:
+        models[3] = models[3].clone(drop=0.0)
+        st.models[3].dropout.p = 0.0
+    jst = _jax_state(cfg, st.models, seed)
+    jfn = jstep.make_train_step(cfg, tuple(models), jstate.build_optimizers(cfg))
+    return jfn, jst, st, make_train_step(cfg, st.models, st.optimizers)
+
+
+def _decisions(cfg, key):
+    """Decisions behind a threshold metric: D1/D2 patch logits, D4 samples."""
+    if key.startswith("dis4"):
+        return BS
+    side = cfg.crop_size
+    for _ in range(5):  # k4 s2 pad2 convs: 96 -> 49 -> 25 -> 13 -> 7 -> 4
+        side = side // 2 + 1
+    return BS * side * side
+
+
+def _compare(cfg, jm, tm, where):
+    assert set(tm) == set(jm)
+    for key, want in jm.items():
+        tol = dict(rtol=0.0, atol=2.0 / _decisions(cfg, key)) if key.startswith("dis") else dict(rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(float(tm[key]), float(want), **tol, err_msg=f"{where} metric {key}")
+
+
+@pytest.fixture(scope="module")
+def jax_three_steps():
+    """The JAX step's metrics over three steps from the port's init, with its
+    Pallas kernels in interpret mode: compiled and run once, and held against
+    both of the port's routes."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    cfg = _cfg(d4aux=True, **IMPLS[0])
+    with pltpu.force_tpu_interpret_mode():
+        jfn, jst, _, _ = _steps(cfg)
+        history = []
+        for i in range(3):
+            jst, jm = jfn(jst, synthetic_batch(cfg, BS, seed=i))
+            history.append({k: float(v) for k, v in jm.items()})
+    return history
+
+
+@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
+def test_three_steps_match_jax(impls, jax_three_steps):
+    """The port's kernel route (``*_impl="pallas"``: on the CPU the kernels'
+    autograd wiring around their plain versions) and its plain route, each
+    over three steps."""
+    cfg = _cfg(d4aux=True, **impls)
+    st = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, st.models, st.optimizers)
+    for i, jm in enumerate(jax_three_steps):
+        st, tm = step(st, synthetic_batch(cfg, BS, seed=i))
+        _compare(cfg, jm, tm, f"step {i}")
+    assert st.step == 3
+
+
+def test_sample_mask_step_matches_jax():
+    """The padded-tail path: every reduction drops the masked entries and
+    the Chamfer falls back to the plain masked loss."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    cfg = _cfg(d4aux=True, chamfer_impl="pallas", bn_stats_impl="xla")
+    batch = synthetic_batch(cfg, BS, seed=5)
+    batch["sample_mask"] = np.array([1, 1, 1, 0], np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        jfn, jst, st, step = _steps(cfg)
+        _, jm = jfn(jst, batch)
+        _, tm = step(st, batch)
+    _compare(cfg, jm, tm, "masked step")
+
+
+@pytest.mark.parametrize("p", [0.3, 0.5])
+def test_dropout_rate(p):
+    """Keep rate 1 - p within 5 sigma over 200k draws, kept values scaled by
+    1 / (1 - p), identity in eval mode."""
+    n = 200_000
+    drop = Dropout(p)
+    x = torch.ones(n)
+    y = drop(x, torch.Generator().manual_seed(3))
+    kept = y != 0
+    rate = float(kept.float().mean())
+    assert abs(rate - (1 - p)) < 5 * np.sqrt(p * (1 - p) / n)
+    torch.testing.assert_close(y[kept], torch.full((int(kept.sum()),), 1 / (1 - p)))
+    drop.eval()
+    assert torch.equal(drop(x), x)
+
+
+def test_generator_lr_roundtrip():
+    st = create_train_state(_cfg(), seed=0)
+    assert get_generator_lr(st) == pytest.approx(1e-3)
+    set_generator_lr(st, 2e-4)
+    assert get_generator_lr(st) == pytest.approx(2e-4)
+
+
+@pytest.mark.parametrize(
+    "bad",
+    [dict(packed_level0=True), dict(packed_compute=True, packed_level0=True), dict(compute_dtype="bfloat16"),
+     dict(bn_stats_impl="pallas", num_devices=2), dict(torch_bn_stats=False)],
+)
+def test_rejected_configs(bad):
+    with pytest.raises(ValueError):
+        create_train_state(_cfg(**bad))
