@@ -9,16 +9,39 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       plain PyTorch versions on the card -- B=16, N=M=300; B=2, N=M=2048;
       and a cloud of duplicated points (ties go to the lowest index);
   (b) BN statistics: forward and backward kernels against their plain
-      versions at every BatchNorm shape of the generator at bs 16, 224^2;
+      versions, and timed, at every BatchNorm shape of the generator on
+      both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS);
   (c) the MS-CMRSeg triple-adversary train step (generator + D1 + D2 + D4,
       bs 16, 224^2, float32, both kernels on): five steps on synthetic
-      batches, every metric finite, every kernel launched, one step against
+      batches, every metric finite, every kernel launched, the BatchNorm
+      inputs of the shapes phase (b) checked, one step against
       the plain implementations from the same weights, median step time and
       peak memory;
-  (d) one evaluation step.
+  (d) one evaluation step;
+  (e) farthest-point sampling: the kernel against its plain version, bit for
+      bit, on B=16 masks of 256^2 with k=300 (filled ellipses; per-pixel
+      random labels), on a mask with fewer than k candidates, on an empty
+      and a 50-pixel mask through ``masks_to_point_clouds`` (zero clouds),
+      and on general float coordinates with P=5,000, k=64; its time beside a
+      bound that is the larger of bytes, operations and the serial chain of
+      k-1 dependent rounds;
+  (f) the MM-WHS path at full width (softmax, D2 + D4, bs 16, 256^2,
+      5 classes, light augmentation): raw host batch -> device preprocess
+      (augment both streams, regenerate both point clouds with the FPS
+      kernel, normalise, one-hot) -> train step, four times; every metric
+      finite, FPS launched twice per step, the preprocess output checked
+      (shapes, one-hot masks, clouds on candidates of the warped masks),
+      one preprocess + step against the plain implementations from the same
+      weights and generator seeds, preprocess and step times, the
+      preprocess time with the point head off (no clouds), peak memory.
 
 Every check raises on failure, so any failure exits non-zero. The line
-before the last is the kernel table as JSON; the last line is
+before the last is the kernel table as JSON (each kernel's time beside its
+plain version's, the least time the card could take for the same bytes and
+operations, and a library call's time where one computes the same function;
+``by_path`` holds each path's launches and, where a kernel's shapes differ
+between the paths, its numbers at that path's largest shape);
+the last line is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device the script exits non-zero and prints no result.
 
@@ -37,6 +60,19 @@ import time
 import numpy as np
 
 STEPS = 5
+MMWHS_STEPS = 4
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and
+# float32 FLOP/s outside the tensor cores; the kernels' bounds are reckoned
+# against them
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# Assumed least cost of one FPS round, whatever the design: the round's point
+# is known only after a reduction over the whole cloud (a two-level shuffle
+# argmax with a barrier on either side of the hand-over, ~0.5 us at the
+# card's clock) and the next round starts with a dependent load of that
+# point's coordinates (~0.5 us from L2). Rounds cannot overlap, so k-1 of
+# them is a floor that bytes and operations over the whole card do not see.
+FPS_ROUND_FLOOR_US = 1.0
 # one-step kernel-vs-plain agreement of the train-step metrics: the tolerance
 # of tests/test_step_parity_torch.py (sum order in f32 reductions differs
 # between the kernels and PyTorch's own reductions)
@@ -59,35 +95,25 @@ KERNELS = {
         route="cuda", source="pointcloududa_torch/csrc/bn_stats.cu",
         replaces="pointcloududa_tpu/ops/bn_pallas.py:123",
     ),
+    "fps": dict(
+        route="cuda", source="pointcloududa_torch/csrc/fps.cu",
+        replaces="pointcloududa_tpu/ops/fps_pallas.py:95",
+    ),
 }
 
 
-def _time_ms(torch, fn, iters=20, replays=5):
-    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
-    graph, replayed ``replays`` times between CUDA events. The replay issues
-    the captured launches back to back, so the host's share of a call (the
-    Python wrapper, ctypes, allocation) is not in the number, only the
-    kernels and the gaps between them."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the default stream, as capture requires
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
+def _bound(nbytes: float, flops: float, chain_ms: float = 0.0) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the HBM peak, its
+    operations over the float32 peak, or ``chain_ms``, the time of operations
+    that must follow one another, whichever is largest. ``bound_by`` names a
+    chain as "operations" (it is the operations' dependence, not their
+    number, that binds) and ``bound_note`` says so."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    if chain_ms > max(t_bytes, t_ops):
+        return dict(bound_ms=chain_ms, bound_by="operations", bound_note="serial chain",
+                    bytes_ms=t_bytes, operations_ms=t_ops)
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def _max_err(a, b) -> float:
@@ -103,6 +129,7 @@ def phase_chamfer(torch, dev, rec):
     """(a) Chamfer kernels against their plain versions."""
     from pointcloududa_torch.ops import chamfer_kernel as ck
     from pointcloududa_torch.ops.losses import chamfer_loss as plain_chamfer
+    from pointcloududa_torch.utils.timing import graph_ms
 
     rng = np.random.default_rng(0)
     fwd_err = bwd_err = 0.0
@@ -131,8 +158,10 @@ def phase_chamfer(torch, dev, rec):
         print(f"  chamfer B={b} N=M={n}: loss {float(loss):.7f} (plain {float(ref):.7f}), "
               f"argmins equal, max|dmin| {err_min:.3g}, max|dgrad| {err_grad:.3g}")
         if n > 512:  # the TPU's tiled regime (N*M > 512^2): time it too
-            print(f"  chamfer_nn_forward B={b} N=M={n}: kernel {_time_ms(torch, lambda: ck.nn_directional(x, y)):.4f} ms, "
-                  f"plain {_time_ms(torch, lambda: ck.nn_directional_plain(x, y)):.4f} ms")
+            bound = _bound(b * 2 * n * 12 + b * n * 8, b * n * n * 9)
+            print(f"  chamfer_nn_forward B={b} N=M={n}: kernel {graph_ms(lambda: ck.nn_directional(x, y)):.4f} ms, "
+                  f"plain {graph_ms(lambda: ck.nn_directional_plain(x, y)):.4f} ms, "
+                  f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}")
     # duplicated points: every point appears twice; ties go to the lowest index
     base = torch.tensor(rng.uniform(size=(2, 100, 3)), dtype=torch.float32, device=dev)
     dup = torch.cat([base, base], dim=1).contiguous()
@@ -147,86 +176,143 @@ def phase_chamfer(torch, dev, rec):
     _, i1 = ck.nn_directional(x, y)
     _, i2 = ck.nn_directional(y, x)
     g = torch.tensor(1.0, device=dev)
+    b, n, m = 16, 300, 300
+    # forward, one direction: both clouds in, (min, argmin) per query out; per
+    # pair 3 subtractions, 3 products, 2 sums and a comparison
     rec["chamfer_nn_forward"].update(
         max_abs_err=fwd_err,
-        ms=_time_ms(torch, lambda: ck.nn_directional(x, y)),
-        plain_ms=_time_ms(torch, lambda: ck.nn_directional_plain(x, y)),
+        ms=graph_ms(lambda: ck.nn_directional(x, y)),
+        plain_ms=graph_ms(lambda: ck.nn_directional_plain(x, y)),
+        library_ms=None,
+        **_bound(b * (n + m) * 12 + b * n * 8, b * n * m * 9),
     )
+    # backward, one cloud: both clouds, both argmin lists and g in, the
+    # gradient out; per point of either cloud one unit vector (~12 operations)
     rec["chamfer_backward"].update(
         max_abs_err=bwd_err,
-        ms=_time_ms(torch, lambda: ck.side_grad(x, y, i1, i2, g)),
-        plain_ms=_time_ms(torch, lambda: ck.side_grad_plain(x, y, i1, i2, g)),
+        ms=graph_ms(lambda: ck.side_grad(x, y, i1, i2, g)),
+        plain_ms=graph_ms(lambda: ck.side_grad_plain(x, y, i1, i2, g)),
+        library_ms=None,
+        **_bound(b * (n + m) * 12 + b * (n + m) * 4 + 4 + b * n * 12, b * (n + m) * 12),
     )
     for name in ("chamfer_nn_forward", "chamfer_backward"):
         r = rec[name]
-        print(f"  {name} B=16 N=M=300: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+        print(f"  {name} B=16 N=M=300: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (a launch costs more than that)")
 
 
-# every BatchNorm input of the generator at bs 16, 224^2 (encoder and decoder
-# levels share the shapes)
-BN_SHAPES = ((16, 32, 224, 224), (16, 64, 112, 112), (16, 128, 56, 56), (16, 256, 28, 28))
+# every BatchNorm input of the generator at bs 16, by path: 224^2 for MS-CMRSeg,
+# 256^2 for MM-WHS (encoder and decoder levels share the shapes; the 512-channel
+# bottleneck has no BatchNorm). Phases (c) and (f) fail if a step's BatchNorm
+# inputs are not exactly these.
+BN_SHAPES = {
+    "mscmrseg": ((16, 32, 224, 224), (16, 64, 112, 112), (16, 128, 56, 56), (16, 256, 28, 28)),
+    "mmwhs": ((16, 32, 256, 256), (16, 64, 128, 128), (16, 128, 64, 64), (16, 256, 32, 32)),
+}
 
 
 def phase_bn(torch, dev, rec):
-    """(b) BN-statistics kernels against their plain versions."""
+    """(b) BN-statistics kernels against their plain versions, on the shapes
+    of both paths."""
     from pointcloududa_torch.ops import bn_kernel as bk
+    from pointcloududa_torch.utils.timing import graph_ms
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    fwd_err = bwd_err = 0.0
-    timings = []
-    for shape in BN_SHAPES:
-        x = torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2
-        c = shape[1]
-        mk, qk = bk.stats_forward(x)
-        mp, qp = bk.stats_forward_plain(x)
-        # f32 sums over up to 802,816 values in another order than PyTorch's
-        for got, want in ((mk, mp), (qk, qp)):
-            err = _max_err(got, want)
-            _require(err <= 1e-5 + 1e-5 * float(want.abs().max()), f"BN stats differ by {err} at {shape}")
-            fwd_err = max(fwd_err, err)
-        mk2, qk2 = bk.stats_forward(x)
-        _require(torch.equal(mk, mk2) and torch.equal(qk, qk2), "BN stats not bit-reproducible")
-        gm = torch.randn(c, generator=gen, device=dev)
-        gq = torch.randn(c, generator=gen, device=dev)
-        dk = bk.stats_backward(x, gm, gq)
-        dp = bk.stats_backward_plain(x, gm, gq)
-        err = _max_err(dk, dp)
-        _require(err <= 1e-6 * (1.0 + float(dp.abs().max())), f"BN backward differs by {err} at {shape}")
-        bwd_err = max(bwd_err, err)
-        t = (
-            _time_ms(torch, lambda: bk.stats_forward(x)),
-            _time_ms(torch, lambda: bk.stats_forward_plain(x)),
-            _time_ms(torch, lambda: bk.stats_backward(x, gm, gq)),
-            _time_ms(torch, lambda: bk.stats_backward_plain(x, gm, gq)),
-        )
-        timings.append(t)
-        print(f"  bn_stats {shape}: fwd kernel {t[0]:.4f} ms (plain {t[1]:.4f}), "
-              f"bwd kernel {t[2]:.4f} ms (plain {t[3]:.4f})")
-        del x, dk, dp
-    # the kernel table carries the largest shape, (16, 32, 224, 224)
-    rec["bn_stats_forward"].update(max_abs_err=fwd_err, ms=timings[0][0], plain_ms=timings[0][1])
-    rec["bn_stats_backward"].update(max_abs_err=bwd_err, ms=timings[0][2], plain_ms=timings[0][3])
-    print(f"  bn_stats max|err| fwd {fwd_err:.3g}, bwd {bwd_err:.3g}")
+    for path, shapes in BN_SHAPES.items():
+        fwd_err = bwd_err = 0.0
+        for shape in shapes:
+            x = torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2
+            c = shape[1]
+            mk, qk = bk.stats_forward(x)
+            mp, qp = bk.stats_forward_plain(x)
+            # f32 sums over up to 1,048,576 values in another order than PyTorch's
+            for got, want in ((mk, mp), (qk, qp)):
+                err = _max_err(got, want)
+                _require(err <= 1e-5 + 1e-5 * float(want.abs().max()), f"BN stats differ by {err} at {shape}")
+                fwd_err = max(fwd_err, err)
+            mk2, qk2 = bk.stats_forward(x)
+            _require(torch.equal(mk, mk2) and torch.equal(qk, qk2), "BN stats not bit-reproducible")
+            gm = torch.randn(c, generator=gen, device=dev)
+            gq = torch.randn(c, generator=gen, device=dev)
+            dk = bk.stats_backward(x, gm, gq)
+            dp = bk.stats_backward_plain(x, gm, gq)
+            err = _max_err(dk, dp)
+            _require(err <= 1e-6 * (1.0 + float(dp.abs().max())), f"BN backward differs by {err} at {shape}")
+            bwd_err = max(bwd_err, err)
+            # forward: x in, 2 C floats out, 3 operations per element; backward:
+            # x and 2 C floats in, dx out, 3 operations per element
+            fwd = dict(
+                shape=list(shape), ms=graph_ms(lambda: bk.stats_forward(x)),
+                plain_ms=graph_ms(lambda: bk.stats_forward_plain(x)),
+                # the one PyTorch call that computes the forward's function; a
+                # yardstick only, the port never calls it
+                library_ms=graph_ms(lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)),
+                **_bound(x.numel() * 4 + 2 * c * 4, 3 * x.numel()),
+            )
+            bwd = dict(
+                shape=list(shape), ms=graph_ms(lambda: bk.stats_backward(x, gm, gq)),
+                plain_ms=graph_ms(lambda: bk.stats_backward_plain(x, gm, gq)), library_ms=None,
+                **_bound(2 * x.numel() * 4 + 2 * c * 4, 3 * x.numel()),
+            )
+            print(f"  bn_stats {path} {shape}: fwd kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
+                  f"torch.var_mean {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}), bwd kernel {bwd['ms']:.4f} ms "
+                  f"(plain {bwd['plain_ms']:.4f}, bound {bwd['bound_ms']:.4f})")
+            if shape == shapes[0]:  # the kernel table carries each path's largest shape
+                rec["bn_stats_forward"].setdefault("by_path", {})[path] = fwd
+                rec["bn_stats_backward"].setdefault("by_path", {})[path] = bwd
+            del x, dk, dp
+        rec["bn_stats_forward"]["by_path"][path]["max_abs_err"] = fwd_err
+        rec["bn_stats_backward"]["by_path"][path]["max_abs_err"] = bwd_err
+        print(f"  bn_stats {path} max|err| over its four shapes: fwd {fwd_err:.3g}, bwd {bwd_err:.3g}")
+    # the top-level numbers of a row: the largest shape of all, the error over both paths
+    for name in ("bn_stats_forward", "bn_stats_backward"):
+        by_path = rec[name]["by_path"]
+        rec[name].update(by_path["mmwhs"], max_abs_err=max(v["max_abs_err"] for v in by_path.values()))
 
 
 def _launch_counts():
     from pointcloududa_torch.ops import bn_kernel as bk
     from pointcloududa_torch.ops import chamfer_kernel as ck
+    from pointcloududa_torch.ops import fps_kernel as fk
 
     return {
         "chamfer_nn_forward": ck.nn_directional.launches,
         "chamfer_backward": ck.side_grad.launches,
         "bn_stats_forward": bk.stats_forward.launches,
         "bn_stats_backward": bk.stats_backward.launches,
+        "fps": fk.fps.launches,
     }
 
 
 def _reset_launches():
     from pointcloududa_torch.ops import bn_kernel as bk
     from pointcloududa_torch.ops import chamfer_kernel as ck
+    from pointcloududa_torch.ops import fps_kernel as fk
 
     ck.reset_launches()
     bk.reset_launches()
+    fk.reset_launches()
+
+
+def _record_launches(rec, path: str, counts: dict, expected: set) -> None:
+    """Write one path's launch counts into the kernel table and fail if a
+    kernel the path runs was launched no time."""
+    for name, n in counts.items():
+        _require(n > 0 or name not in expected, f"kernel {name} was not launched on the {path} path")
+        rec[name].setdefault("by_path", {}).setdefault(path, {})["launches"] = n
+        rec[name]["launches"] = rec[name].get("launches", 0) + n
+
+
+def _watch_bn_inputs(generator_model):
+    """Record the shape of every BatchNorm input of the generator from now on;
+    returns the set that fills and a function that stops the recording."""
+    from pointcloududa_torch.models.unet import TwinBatchNorm
+
+    seen = set()
+    hooks = [m.register_forward_pre_hook(lambda _m, args: seen.add(tuple(args[0].shape)))
+             for m in generator_model.modules() if isinstance(m, TwinBatchNorm)]
+    _require(len(hooks) == 16, f"the generator has {len(hooks)} BatchNorms, not 16")
+    return seen, lambda: [h.remove() for h in hooks]
 
 
 def _to_device(torch, batch, dev):
@@ -247,6 +333,7 @@ def phase_train_step(torch, dev, rec, card):
     state = create_train_state(cfg, seed=0, device=dev)
     step = make_train_step(cfg, state.models, state.optimizers)
     batches = [_to_device(torch, synthetic_batch(cfg, cfg.bs, seed=s), dev) for s in range(STEPS)]
+    bn_seen, stop_watching = _watch_bn_inputs(state.models[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -263,15 +350,16 @@ def phase_train_step(torch, dev, rec, card):
         times.append(start.elapsed_time(end))
     counts = _launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    stop_watching()
+    _require(bn_seen == set(BN_SHAPES["mscmrseg"]), f"BatchNorm inputs {sorted(bn_seen)} are not phase (b)'s shapes")
 
     for i, metrics in enumerate(history):
         values = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in values.items() if not np.isfinite(v)]
         _require(not bad, f"step {i}: non-finite metrics {bad}")
         print(f"  step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(values.items())))
-    for name, n in counts.items():
-        _require(n > 0, f"kernel {name} was not launched by the train step")
-        rec[name]["launches"] = n
+    _record_launches(rec, "mscmrseg", counts, set(counts) - {"fps"})
+    _require(counts["fps"] == 0, "the MS-CMRSeg step regenerates no clouds")
     print(f"  launches in {STEPS} steps: {counts}")
     # the first step pays cuDNN's algorithm choice and the allocator's growth
     print(f"  train step (bs 16, 224^2, f32, D1+D2+D4, both kernels): median {statistics.median(times[1:]):.2f} ms "
@@ -328,6 +416,226 @@ def phase_eval(torch, dev, cfg):
     print(f"  eval step: logits {tuple(logits.shape)}, " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
 
 
+def _on_candidates(torch, clouds, masks) -> bool:
+    """Whether every point of (B, k, 3) voxel clouds is a candidate of its
+    (B, H, W) mask: a foreground pixel on the z=0 and z=2 faces, a boundary
+    pixel at z=1."""
+    from pointcloududa_torch.ops.pointcloud_device import candidates
+
+    b, h, w = masks.shape
+    cand = candidates(masks > 0).reshape(b, 3, h, w)
+    z, y, x = clouds.round().long().unbind(-1)
+    item = torch.arange(b, device=masks.device)[:, None]
+    return bool(cand[item, z, y, x].all())
+
+
+def phase_fps(torch, dev, rec, card):
+    """(e) the FPS kernel against its plain version, bit for bit."""
+    from pointcloududa_torch.config import mmwhs_default
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks, synthetic_raw_batch
+    from pointcloududa_torch.ops import fps_kernel as fk
+    from pointcloududa_torch.ops import pointcloud_device as pcd
+    from pointcloududa_torch.utils.timing import graph_ms
+
+    size, b, k = 256, 16, 300
+    coords = pcd.grid_coords(size, size, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cfg = mmwhs_default(d4=True)
+    few = np.zeros((2, size, size), np.uint8)
+    few[0, 100:108, 60:72] = 3  # 96 pixels: 2 * 96 face + 36 ring candidates < k
+    few[1, 5:12, 200:209] = 1
+    cases = {
+        "ellipses": synthetic_blob_masks(b, size, seed=0),
+        "random labels": synthetic_raw_batch(cfg, b, seed=0)["mask_s"],
+        "fewer than k candidates": few,
+    }
+    timed, worst = {}, 0.0
+    for name, masks in cases.items():
+        masks = torch.as_tensor(masks, device=dev)
+        cand = pcd.candidates(masks > 0)
+        starts = pcd.draw_starts(masks, gen)
+        grid = coords.expand(masks.shape[0], -1, -1)  # batch stride 0: one grid for all
+        got, want = fk.fps(cand, grid, starts, k), fk.fps_plain(cand, grid, starts, k)
+        torch.cuda.synchronize()
+        worst = max(worst, _max_err(got, want))
+        _require(torch.equal(got, want), f"FPS kernel differs from its plain version on {name}")
+        _require(bool(torch.isfinite(got).all()) and _on_candidates(torch, got, masks), f"FPS points off the candidates on {name}")
+        n_valid = cand.sum(1)
+        distinct = [len({tuple(pt) for pt in cloud.tolist()}) for cloud in got[:2]]
+        print(f"  fps {name}: B={masks.shape[0]} P={cand.shape[1]} k={k}, kernel == plain; valid candidates per cloud "
+              f"{int(n_valid.min())}..{int(n_valid.max())}; distinct points in clouds 0, 1: {distinct}")
+        if name == "fewer than k candidates":
+            _require(max(distinct) < k and int(n_valid.max()) < k, "this case must run out of candidates")
+        timed[name] = (cand, grid, starts, float(n_valid.sum()))
+
+    # zero clouds: an empty mask and a mask of exactly 50 pixels, beside a live one
+    masks = torch.zeros((3, size, size), dtype=torch.uint8, device=dev)
+    masks[1, 0, :50] = 1
+    masks[2] = torch.as_tensor(synthetic_blob_masks(1, size, seed=1)[0], device=dev)
+    got = pcd.masks_to_point_clouds(masks, torch.Generator(device=dev).manual_seed(3))
+    want = pcd.masks_to_point_clouds(masks, torch.Generator(device=dev).manual_seed(3), impl="plain")
+    worst = max(worst, _max_err(got, want))
+    _require(torch.equal(got, want), "masks_to_point_clouds: kernel and plain differ")
+    _require(not bool(got[:2].any()) and bool(got[2].any()), "empty and 50-pixel masks must give zero clouds")
+    print("  fps empty and 50-pixel masks: zero clouds, the live mask beside them sampled (kernel == plain)")
+
+    # general float coordinates, P not a multiple of 128, own coordinates per cloud
+    rng = np.random.default_rng(4)
+    fb, fp, fkk = 4, 5000, 64
+    fcoords = torch.tensor(rng.normal(size=(fb, fp, 3)), dtype=torch.float32, device=dev)
+    fvalid = torch.tensor(rng.uniform(size=(fb, fp)) < 0.7, device=dev)
+    fstarts = torch.argmax(fvalid.to(torch.int32), dim=1).to(torch.int32)
+    got, want = fk.fps(fvalid, fcoords, fstarts, fkk), fk.fps_plain(fvalid, fcoords, fstarts, fkk)
+    worst = max(worst, _max_err(got, want))
+    _require(torch.equal(got, want), "FPS kernel differs from its plain version on float coordinates")
+    print(f"  fps float coordinates: B={fb} P={fp} k={fkk}, kernel == plain; max|err| over all cases {worst}")
+
+    # times at the path's shape; the plain version is a Python loop of k
+    # rounds of ~10 PyTorch kernels, so one call is captured, not 20
+    chain_ms = (k - 1) * FPS_ROUND_FLOOR_US * 1e-3
+    for name, (cand, grid, starts, n_valid) in timed.items():
+        nb = cand.shape[0]
+        ms = graph_ms(lambda: fk.fps(cand, grid, starts, k), iters=3, replays=3)
+        plain_ms = graph_ms(lambda: fk.fps_plain(cand, grid, starts, k), iters=1, replays=2)
+        # bytes: validity, the shared grid and the starts in, the clouds out;
+        # operations: k-1 rounds over this batch's valid candidates, each 3
+        # subtractions, 3 products, 2 sums, a minimum and a comparison; chain:
+        # k-1 rounds that cannot overlap
+        bound = _bound(cand.numel() + coords.numel() * 4 + nb * 4 + nb * k * 12, (k - 1) * n_valid * 10, chain_ms)
+        print(f"  fps {name} B={nb} P={cand.shape[1]} k={k}: kernel {ms:.4f} ms (3 calls captured, 3 replays), "
+              f"plain {plain_ms:.4f} ms (1 call captured, 2 replays), bound {bound['bound_ms']:.4f} ms by "
+              f"{bound.get('bound_note', bound['bound_by'])} ({k - 1} rounds x {FPS_ROUND_FLOOR_US} us assumed; bytes "
+              f"{bound.get('bytes_ms', 0.0):.4f} ms, operations {bound.get('operations_ms', 0.0):.4f} ms; "
+              f"{n_valid / nb:.0f} valid candidates per cloud), on {card}")
+        if name == "ellipses":  # the kernel table carries the masks that look like anatomy
+            rec["fps"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
+    # what a round of this kernel costs with next to nothing to scan: one
+    # candidate per thread, so the barriers, the argmax and the dependent load remain
+    tiny = torch.ones((b, 1024), dtype=torch.bool, device=dev)
+    tcoords = torch.tensor(rng.normal(size=(b, 1024, 3)), dtype=torch.float32, device=dev)
+    tstarts = torch.zeros(b, dtype=torch.int32, device=dev)
+    _require(torch.equal(fk.fps(tiny, tcoords, tstarts, k), fk.fps_plain(tiny, tcoords, tstarts, k)),
+             "FPS kernel differs from its plain version at P=1024")
+    ms = graph_ms(lambda: fk.fps(tiny, tcoords, tstarts, k), iters=3, replays=3)
+    print(f"  fps one candidate per thread B={b} P=1024 k={k}: kernel {ms:.4f} ms = {ms * 1e3 / (k - 1):.2f} us a round "
+          f"(the measured chain of this design, beside the {FPS_ROUND_FLOOR_US} us assumed for the bound), on {card}")
+
+
+def phase_mmwhs(torch, dev, rec, card):
+    """(f) the MM-WHS path: raw batch -> device preprocess -> train step."""
+    import dataclasses
+
+    from pointcloududa_torch.config import mmwhs_default
+    from pointcloududa_torch.data.synthetic import synthetic_raw_batch
+    from pointcloududa_torch.ops import augment
+    from pointcloududa_torch.train.loop import make_device_preprocess
+    from pointcloududa_torch.train.state import create_train_state
+    from pointcloududa_torch.train.step import make_train_step
+    from pointcloududa_torch.utils.timing import event_ms
+
+    cfg = mmwhs_default(
+        softmax=True, d2=True, d4=True, aug="light", bs=16, compute_dtype="float32",
+        chamfer_impl="pallas", bn_stats_impl="pallas",
+    )
+    _require((cfg.crop_size, cfg.n_class, cfg.fc_inch) == (256, 5, 121), "not the MM-WHS widths")
+    state = create_train_state(cfg, seed=0)  # no device given: the card
+    _require(next(state.models[0].parameters()).device.type == "cuda", "the default device is not the card")
+    step = make_train_step(cfg, state.models, state.optimizers)
+    preprocess = make_device_preprocess(cfg, train=True, device_augment=True)
+    bn_seen, stop_watching = _watch_bn_inputs(state.models[0])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # the raw batches wait on the card, as a prefetching loader leaves them
+    raws = [_to_device(torch, synthetic_raw_batch(cfg, cfg.bs, seed=s), dev) for s in range(MMWHS_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    _reset_launches()
+    pre_ms, step_ms, history = [], [], []
+    for raw in raws:
+        batch, t = event_ms(lambda: preprocess(gen, raw))
+        pre_ms.append(t)
+        (state, metrics), t = event_ms(lambda: step(state, batch))
+        step_ms.append(t)
+        history.append(metrics)
+    counts = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    stop_watching()
+    _require(bn_seen == set(BN_SHAPES["mmwhs"]), f"BatchNorm inputs {sorted(bn_seen)} are not phase (b)'s shapes")
+
+    for i, metrics in enumerate(history):
+        values = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if not np.isfinite(v)]
+        _require(not bad, f"MM-WHS step {i}: non-finite metrics {bad}")
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(values.items())))
+    _require(counts["fps"] == 2 * MMWHS_STEPS, f"fps launched {counts['fps']} times in {MMWHS_STEPS} steps, not twice per step")
+    _record_launches(rec, "mmwhs", counts, set(counts))
+    print(f"  launches in {MMWHS_STEPS} preprocess + step calls: {counts}")
+    # the first call pays cuDNN's algorithm choice and the allocator's growth
+    print(f"  MM-WHS device preprocess (bs 16, 256^2, light augmentation of both streams + 32 clouds by the FPS "
+          f"kernel): median {statistics.median(pre_ms[1:]):.2f} ms over calls 1-{MMWHS_STEPS - 1} "
+          f"(all: {', '.join(f'{t:.2f}' for t in pre_ms)}), on {card}")
+    print(f"  MM-WHS train step (bs 16, 256^2, f32, softmax, D2+D4, all kernels): median "
+          f"{statistics.median(step_ms[1:]):.2f} ms over steps 1-{MMWHS_STEPS - 1} "
+          f"(all: {', '.join(f'{t:.2f}' for t in step_ms)}), peak memory {peak_gib:.2f} GiB, on {card}")
+
+    # the same preprocess with the point head off: no clouds, so no FPS launch
+    no_clouds = make_device_preprocess(dataclasses.replace(cfg, d4=False), train=True, device_augment=True)
+    bare_ms = [event_ms(lambda: no_clouds(gen, raw))[1] for raw in raws]
+    _require(_launch_counts()["fps"] == counts["fps"], "the point head is off: no cloud may be regenerated")
+    print(f"  MM-WHS device preprocess with the point head off (augmentation, normalise, one-hot; no clouds): median "
+          f"{statistics.median(bare_ms[1:]):.2f} ms over calls 1-{MMWHS_STEPS - 1} "
+          f"(all: {', '.join(f'{t:.2f}' for t in bare_ms)}), on {card}")
+
+    # the preprocess output, with the draws in hand so the warped masks are known
+    light = augment.light()
+    raw = raws[0]
+    draws = {f"aug_{side}": augment.sample_draws(gen, light, cfg.bs, dev) for side in ("s", "t")}
+    batch = preprocess(gen, raw, draws=draws)
+    hw = cfg.crop_size
+    want = {"img_s": (cfg.bs, hw, hw, 3), "img_t": (cfg.bs, hw, hw, 3), "mask_s": (cfg.bs, hw, hw, cfg.n_class),
+            "vert_s": (cfg.bs, 300, 3), "vert_t": (cfg.bs, 300, 3)}
+    _require({k: tuple(v.shape) for k, v in batch.items()} == want, f"preprocess shapes {[(k, tuple(v.shape)) for k, v in batch.items()]}")
+    _require(all(v.dtype == torch.float32 and v.device.type == "cuda" and bool(torch.isfinite(v).all()) for v in batch.values()),
+             "preprocess output must be finite float32 on the card")
+    _require(bool((batch["mask_s"].sum(-1) == 1).all()), "one-hot masks must sum to 1 per pixel")
+    blank = torch.zeros((cfg.bs, hw, hw, 1), device=dev)
+    for side in ("s", "t"):
+        cloud = batch[f"vert_{side}"]
+        _require(float(cloud.min()) >= 0.0 and float(cloud.max()) <= 1.0, f"vert_{side} outside [0, 1]")
+        _, warped = augment.augment_from_draws(light, blank, raw[f"mask_{side}"], draws[f"aug_{side}"])
+        _require(_on_candidates(torch, cloud * 255.0, warped), f"vert_{side}: a point off the warped mask's candidates")
+    _require(torch.equal(batch["mask_s"].argmax(-1).to(torch.int32), augment.augment_from_draws(
+        light, blank, raw["mask_s"], draws["aug_s"])[1]), "mask_s is not the warped source mask")
+    fired = draws["aug_s"]["gates"].sum(0).tolist()
+    print(f"  preprocess output: shapes and dtypes as the step takes them, one-hot masks sum to 1, clouds in [0, 1] "
+          f"and on candidates of the warped masks (source stream: {fired[0]} fliplr, {fired[1]} flipud, {fired[3]} affine of {cfg.bs})")
+
+    # one preprocess + step from identical weights and generator seeds: all
+    # kernels against all plain implementations
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    results = {}
+    for name, c, fps_impl in (
+        ("kernels", cfg, "auto"),
+        ("plain", dataclasses.replace(cfg, chamfer_impl="jnp", bn_stats_impl="xla"), "plain"),
+    ):
+        st = create_train_state(c, seed=0)
+        b = make_device_preprocess(c, True, True, fps_impl=fps_impl)(torch.Generator(device=dev).manual_seed(11), raws[1])
+        _, metrics = make_train_step(c, st.models, st.optimizers)(st, b)
+        results[name] = (b, {k: float(v) for k, v in metrics.items()})
+        del st
+    torch.backends.cudnn.deterministic = False
+    for key in ("vert_s", "vert_t"):
+        _require(torch.equal(results["kernels"][0][key], results["plain"][0][key]), f"{key}: kernel and plain clouds differ")
+    worst = 0.0
+    for key, want_v in results["plain"][1].items():
+        got_v = results["kernels"][1][key]
+        _require(abs(got_v - want_v) <= STEP_ATOL + STEP_RTOL * abs(want_v), f"MM-WHS step metric {key}: kernels {got_v} vs plain {want_v}")
+        worst = max(worst, abs(got_v - want_v))
+    print(f"  one preprocess + step, kernels vs plain from identical weights and seeds: clouds equal bit for bit, "
+          f"{len(results['plain'][1])} metrics agree (max |diff| {worst:.3g}; rtol {STEP_RTOL}, atol {STEP_ATOL}; cuDNN deterministic)")
+
+
 def main() -> int:
     import torch
 
@@ -364,7 +672,15 @@ def main() -> int:
     phase_step_parity(torch, dev, cfg)
     print("(d) eval step")
     phase_eval(torch, dev, cfg)
+    print("(e) FPS kernel vs plain")
+    phase_fps(torch, dev, rec, smi)
+    print("(f) MM-WHS path: raw batch -> device preprocess -> train step")
+    phase_mmwhs(torch, dev, rec, smi)
 
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms"}
+    for r in rec.values():
+        _require(keys <= set(r), f"kernel {r['name']} lacks {sorted(keys - set(r))}")
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({
         "ok": True,

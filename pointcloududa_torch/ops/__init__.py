@@ -1,1 +1,2 @@
-"""Losses and the CUDA kernels with their wrappers."""
+"""Losses, the CUDA kernels with their wrappers, device point clouds and the
+light augmentation."""

@@ -1,1 +1,2 @@
-"""Train state, optimisers and the 5-phase UDA train step."""
+"""Train state, optimisers, the 5-phase UDA train step and the device
+preprocess."""

@@ -22,6 +22,7 @@ import torch
 
 from pointcloududa_torch.config import UDAConfig
 from pointcloududa_torch.models import PointNetCls, SegmentationPointModel, UncertaintyDiscriminator
+from pointcloududa_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -53,8 +54,10 @@ def check_config(cfg: UDAConfig) -> None:
 
 
 def build_models(cfg: UDAConfig, generator: Optional[torch.Generator] = None):
-    """Instantiate the generator and the enabled discriminators on the CPU,
-    drawing their initial weights from ``generator``."""
+    """Instantiate the generator and the enabled discriminators, drawing
+    their initial weights from ``generator`` (a CPU generator: the modules
+    are built in host memory and :func:`create_train_state` moves them to
+    its device)."""
     check_config(cfg)
     gen = SegmentationPointModel(
         filters=cfg.filters,
@@ -96,10 +99,12 @@ def build_optimizers(cfg: UDAConfig, models):
     return gen_opt, d1_opt, d2_opt, d4_opt
 
 
-def create_train_state(cfg: UDAConfig, seed: int = 0, device="cpu") -> UDATrainState:
-    """Initialise all networks (weights drawn on the CPU from ``seed``, so
-    they do not depend on the device) and their optimisers on ``device``."""
-    device = torch.device(device)
+def create_train_state(cfg: UDAConfig, seed: int = 0, device=None) -> UDATrainState:
+    """Initialise all networks and their optimisers on ``device``: ``None``
+    means the current CUDA device and raises when there is none; pass
+    ``device="cpu"`` to run on the CPU. The initial weights are drawn in host
+    memory from ``seed``, so they do not depend on the device."""
+    device = resolve_device(device)
     init_gen = torch.Generator().manual_seed(seed)
     models = tuple(m.to(device) if m is not None else None for m in build_models(cfg, init_gen))
     dropout_gen = torch.Generator(device=device).manual_seed(seed + 1)

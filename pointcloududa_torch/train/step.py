@@ -148,6 +148,14 @@ def make_train_step(cfg: UDAConfig, models, optimizers):
         gen_total = sup + adv
         gen_opt.zero_grad(set_to_none=True)
         gen_total.backward(inputs=gen_params)  # the discriminators take no gradient
+        if cfg.sgd:
+            # a parameter no output depends on (the encoder's unused conv1_1)
+            # has no gradient, and torch's SGD would skip it; the reference
+            # numerics decay every parameter, so give it a zero gradient and
+            # let weight decay and momentum act on it too
+            for p in gen_params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         gen_opt.step()
 
         metrics.update(

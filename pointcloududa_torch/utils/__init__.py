@@ -1,1 +1,1 @@
-"""Kernel builder and the JAX weight bridge."""
+"""Kernel build, default device, device timing and the JAX weight bridge."""

@@ -32,12 +32,14 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     "pcuda_chamfer_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "pcuda_chamfer_side_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pcuda_bn_stats_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_bn_stats_backward": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "pcuda_fps": (_P, _P, _L, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

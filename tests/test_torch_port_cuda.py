@@ -5,7 +5,7 @@ CPU mode). On the card: ``python -m pytest tests/test_torch_port_cuda.py -q``.
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances as in ``chip_smoke.py``: argmins equal, Chamfer minima and
 gradients atol 1e-6, BN statistics 1e-5 (+1e-5 relative, f32 sums in another
-order), BN gradients 1e-6 relative.
+order), BN gradients 1e-6 relative; farthest-point sampling exact.
 """
 
 import numpy as np
@@ -114,3 +114,40 @@ def test_generator_with_kernel_bn_matches_plain_bn(dev):
             torch.testing.assert_close(u, w, rtol=1e-4, atol=1e-5)
     finally:
         torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.parametrize("b,p,k,share", [(16, 3 * 64 * 64, 300, 0.3), (3, 5000, 64, 0.7), (1, 1, 4, 1.0), (2, 777, 50, 0.01)])
+def test_fps_kernel_equals_plain(dev, b, p, k, share):
+    """Exact: kernel and plain version sum the three squares in one order
+    and break argmax ties at the lowest index. The last case has fewer valid
+    candidates than ``k``; the grid case repeats coordinates, so ties abound."""
+    from pointcloududa_torch.ops import fps_kernel
+
+    rng = np.random.default_rng(p)
+    if p % (64 * 64) == 0:  # integer grid shared by all clouds: batch stride 0
+        from pointcloududa_torch.ops.pointcloud_device import grid_coords
+
+        coords = grid_coords(64, 64, dev).expand(b, -1, -1)
+    else:
+        coords = torch.tensor(rng.normal(size=(b, p, 3)), dtype=torch.float32, device=dev)
+    valid = torch.tensor(rng.uniform(size=(b, p)) < share, device=dev)
+    valid[:, 0] = True
+    starts = torch.argmax(valid.to(torch.int32), dim=1).to(torch.int32)
+    before = fps_kernel.fps.launches
+    got = fps_kernel.fps(valid, coords, starts, k)
+    torch.cuda.synchronize()
+    assert fps_kernel.fps.launches == before + 1 and not got.requires_grad
+    assert torch.equal(got, fps_kernel.fps_plain(valid, coords, starts, k))
+
+
+def test_fps_kernel_stays_in_bounds_without_valid_points(dev):
+    from pointcloududa_torch.ops import fps_kernel
+
+    valid = torch.zeros((2, 100), dtype=torch.bool, device=dev)
+    coords = torch.arange(600, dtype=torch.float32, device=dev).reshape(2, 100, 3)
+    starts = torch.tensor([7, 99], dtype=torch.int32, device=dev)
+    got = fps_kernel.fps(valid, coords, starts, 5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fps_kernel.fps_plain(valid, coords, starts, 5)) and bool(torch.isfinite(got).all())
+    with pytest.raises(ValueError):
+        fps_kernel.fps(valid, coords.double(), starts, 5)

@@ -18,9 +18,15 @@ three updates on clouds that differ across the batch, through the step's own
 ``discriminator_phase``, at the default init, on 16-point clouds (``_clouds``
 says why). Tolerances as in
 tests/test_torch_port_step.py unless stated.
+
+The MM-WHS configuration with D4 (softmax, D2 + D4, 5 classes) is held the
+same way over one step, and then as the whole slice: a raw MM-WHS batch
+through each package's device preprocess (light augmentation and cloud
+regeneration, the port replaying JAX's draws) and one train step.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -39,7 +45,10 @@ from pointcloududa_torch.ops import losses
 from pointcloududa_torch.train.state import create_train_state
 from pointcloududa_torch.train.step import discriminator_phase, make_eval_step, make_train_step
 from pointcloududa_torch.utils import weights
-from test_torch_port_step import BS, IMPLS, _cfg, _compare, _steps, one_torch_thread  # noqa: F401
+from pointcloududa_torch.config import mmwhs_default
+from pointcloududa_torch.train.loop import make_device_preprocess
+from test_torch_port_preprocess import mmwhs_light_case
+from test_torch_port_step import BS, IMPLS, _cfg, _compare, _mmwhs_cfg, _steps, one_torch_thread  # noqa: F401
 
 SEED = 3
 # D4's parameter updates (new - old) agree to UPDATE_TOL of each tensor's
@@ -85,10 +94,57 @@ def jax_triple_step():
 def test_triple_adversary_step_matches_jax(impls, jax_triple_step):
     jm = jax_triple_step
     cfg = _cfg(d4=True, heinit=True, **impls)
-    st = create_train_state(cfg, seed=SEED)
+    st = create_train_state(cfg, seed=SEED, device="cpu")
     st.models[3].dropout.p = 0.0
     _, tm = make_train_step(cfg, st.models, st.optimizers)(st, synthetic_batch(cfg, BS, seed=4))
     _compare(cfg, jm, tm, "step 0")
+
+
+MMWHS_D4 = dict(d4=True, heinit=True, aug="light")
+
+
+@pytest.fixture(scope="module")
+def jax_mmwhs_d4():
+    """The JAX step of the MM-WHS D2 + D4 configuration (compiled once) from
+    the port's init, plain implementations. The step donates its state, so
+    each call steps a copy."""
+    cfg = _mmwhs_cfg(**MMWHS_D4)
+    jfn, jst, _, _ = _steps(cfg, SEED)
+    return cfg, lambda batch: jfn(jax.tree_util.tree_map(jnp.copy, jst), batch)[1]
+
+
+def _port_mmwhs_d4(impls):
+    cfg = mmwhs_default(**{**dataclasses.asdict(_mmwhs_cfg(**MMWHS_D4)), **impls})
+    st = create_train_state(cfg, seed=SEED, device="cpu")
+    st.models[3].dropout.p = 0.0
+    return cfg, st, make_train_step(cfg, st.models, st.optimizers)
+
+
+@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
+def test_mmwhs_d4_step_matches_jax(impls, jax_mmwhs_d4):
+    jcfg, jax_metrics = jax_mmwhs_d4
+    batch = synthetic_batch(jcfg, BS, seed=6)
+    jm = jax_metrics(batch)
+    cfg, st, step = _port_mmwhs_d4(impls)
+    _, tm = step(st, batch)
+    _compare(cfg, jm, tm, "step 0")
+    assert {"d2_loss", "d4_loss", "ver_s_loss", "ver_t_loss"} <= set(tm) and "d1_loss" not in tm
+
+
+def test_mmwhs_slice_raw_batch_to_step_matches_jax(jax_mmwhs_d4):
+    """The slice as a whole: raw MM-WHS host batch -> device preprocess
+    (augment both streams, regenerate both clouds, normalise, one-hot) ->
+    one 5-phase step, in each package, the port replaying the draws of the
+    JAX preprocess. Metrics at the step tolerance."""
+    jcfg, jax_metrics = jax_mmwhs_d4
+    raw, jbatch, draws = mmwhs_light_case(jcfg, jax.random.PRNGKey(9), jcfg.crop_size, seed=9)
+    jm = jax_metrics(jbatch)
+    cfg, st, step = _port_mmwhs_d4(IMPLS[1])
+    batch = make_device_preprocess(cfg, train=True, device_augment=True, device="cpu")(None, raw, draws=draws)
+    assert set(batch) == set(jbatch) == {"img_s", "mask_s", "img_t", "vert_s", "vert_t"}
+    np.testing.assert_array_equal(np.rint(batch["vert_s"].numpy() * 255), np.rint(np.asarray(jbatch["vert_s"]) * 255))
+    _, tm = step(st, batch)
+    _compare(cfg, jm, tm, "slice")
 
 
 def _clouds(seed, n=16):
@@ -116,7 +172,7 @@ def test_d4_updates_match_jax():
     weight decay. Then the gradient that D4's adversarial term sends into the
     generator's target cloud (phase 2)."""
     cfg = _cfg(d4=True)
-    st = create_train_state(cfg, seed=SEED)
+    st = create_train_state(cfg, seed=SEED, device="cpu")
     d4, opt = st.models[3], st.optimizers[3]
     d4.dropout.p = 0.0
     init = _d4_state(d4)

@@ -78,7 +78,7 @@ def test_train_state_roundtrip():
         net = getattr(template, key)
         nets[key] = jax.tree_util.tree_map(lambda a: rng.normal(size=a.shape).astype(np.float32),
                                            {"params": net.params, "batch_stats": net.batch_stats})
-    models = create_train_state(cfg).models
+    models = create_train_state(cfg, device="cpu").models
     weights.load_jax_variables(models, nets)
     importers = (torch_import.generator_variables, torch_import.discriminator_variables,
                  torch_import.discriminator_variables, torch_import.pointnetcls_variables)
