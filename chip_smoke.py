@@ -5,14 +5,18 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the CUDA kernels from ``pointcloududa_torch/csrc`` (into the
 git-ignored ``build/pointcloududa_torch/``), then runs, in order:
 
-  (a) Chamfer: nearest-neighbour forward and backward kernels against their
-      plain PyTorch versions on the card -- B=16, N=M=300; B=2, N=M=2048;
-      and a cloud of duplicated points (ties go to the lowest index);
+  (a) Chamfer: the one-launch forward, the one-direction nearest-neighbour
+      search and the backward kernels against their plain PyTorch versions
+      on the card -- B=16, N=M=300; B=2, N=M=2048; N != M (300 x 77); and a
+      cloud of duplicated points (ties go to the lowest index); the forward
+      timed beside the earlier route (two one-direction launches and five
+      PyTorch launches), beside an empty kernel's launch, and in clusters
+      of 1 to 8 blocks beside the clusters of each size the card runs at once;
   (b) BN statistics: forward and backward kernels against their plain
       versions, and timed, at every BatchNorm shape of the generator on
       both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS);
   (c) the MS-CMRSeg triple-adversary train step (generator + D1 + D2 + D4,
-      bs 16, 224^2, float32, both kernels on): five steps on synthetic
+      bs 16, 224^2, float32, both kernels on): three steps on synthetic
       batches, every metric finite, every kernel launched, the BatchNorm
       inputs of the shapes phase (b) checked, one step against
       the plain implementations from the same weights, median step time and
@@ -20,11 +24,14 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
   (d) one evaluation step;
   (e) farthest-point sampling: the kernel against its plain version, bit for
       bit, on B=16 masks of 256^2 with k=300 (filled ellipses; per-pixel
-      random labels), on a mask with fewer than k candidates, on an empty
-      and a 50-pixel mask through ``masks_to_point_clouds`` (zero clouds),
-      and on general float coordinates with P=5,000, k=64; its time beside a
-      bound that is the larger of bytes, operations and the serial chain of
-      k-1 dependent rounds;
+      random labels; every candidate valid, which exceeds the shared-memory
+      capacity; a start that is itself invalid), on B=40 clouds, on a mask
+      with fewer than k candidates, on an empty and a 50-pixel mask through
+      ``masks_to_point_clouds`` (zero clouds), and on general float
+      coordinates with P=5,000, k=64; the launch's cluster size and
+      shared-memory bytes; its time, also in clusters of 1 to 8 blocks,
+      beside a bound that is the larger of bytes, operations and the serial
+      chain of k-1 dependent rounds;
   (f) the MM-WHS path at full width (softmax, D2 + D4, bs 16, 256^2,
       5 classes, light augmentation): raw host batch -> device preprocess
       (augment both streams, regenerate both point clouds with the FPS
@@ -59,7 +66,7 @@ import time
 
 import numpy as np
 
-STEPS = 5
+STEPS = 3
 MMWHS_STEPS = 4
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and
 # float32 FLOP/s outside the tensor cores; the kernels' bounds are reckoned
@@ -67,11 +74,11 @@ MMWHS_STEPS = 4
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # Assumed least cost of one FPS round, whatever the design: the round's point
-# is known only after a reduction over the whole cloud (a two-level shuffle
-# argmax with a barrier on either side of the hand-over, ~0.5 us at the
-# card's clock) and the next round starts with a dependent load of that
-# point's coordinates (~0.5 us from L2). Rounds cannot overlap, so k-1 of
-# them is a floor that bytes and operations over the whole card do not see.
+# is known only after a reduction over the whole cloud (within a block, then
+# across the blocks that share the cloud: two barriers and their hand-overs,
+# ~1 us at the card's clock), and only then can the next round's pass over
+# the distances start. Rounds cannot overlap, so k-1 of them is a floor that
+# bytes and operations over the whole card do not see.
 FPS_ROUND_FLOOR_US = 1.0
 # one-step kernel-vs-plain agreement of the train-step metrics: the tolerance
 # of tests/test_step_parity_torch.py (sum order in f32 reductions differs
@@ -79,9 +86,13 @@ FPS_ROUND_FLOOR_US = 1.0
 STEP_RTOL, STEP_ATOL = 2e-3, 2e-4
 
 KERNELS = {
-    "chamfer_nn_forward": dict(
+    "chamfer_forward": dict(
         route="cuda", source="pointcloududa_torch/csrc/chamfer.cu",
         replaces="pointcloududa_tpu/ops/chamfer_pallas.py:64",
+    ),
+    "chamfer_nn_forward": dict(
+        route="cuda", source="pointcloududa_torch/csrc/chamfer.cu",
+        replaces="pointcloududa_tpu/ops/chamfer_pallas.py:142",
     ),
     "chamfer_backward": dict(
         route="cuda", source="pointcloududa_torch/csrc/chamfer.cu",
@@ -125,23 +136,45 @@ def _require(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def phase_chamfer(torch, dev, rec):
+def _earlier_forward(torch, ck, x, y):
+    """The forward as it ran before the one-launch kernel: two one-direction
+    launches, then five PyTorch launches. Timed only, beside the new route."""
+    min1, _ = ck.nn_directional(x, y)
+    min2, _ = ck.nn_directional(y, x)
+    return torch.mean(torch.sqrt(min1 + ck.EPS)) + torch.mean(torch.sqrt(min2 + ck.EPS))
+
+
+def phase_chamfer(torch, dev, rec, card):
     """(a) Chamfer kernels against their plain versions."""
     from pointcloududa_torch.ops import chamfer_kernel as ck
     from pointcloududa_torch.ops.losses import chamfer_loss as plain_chamfer
+    from pointcloududa_torch.utils import native
     from pointcloududa_torch.utils.timing import graph_ms
 
+    stream = torch.cuda.current_stream
+    floor_ms = graph_ms(lambda: native.check(native.load().pcuda_empty_launch(stream().cuda_stream), "pcuda_empty_launch"))
+    print(f"  an empty kernel's launch by graph replay: {floor_ms:.5f} ms (the floor under any one-launch kernel), on {card}")
+
     rng = np.random.default_rng(0)
-    fwd_err = bwd_err = 0.0
-    for b, n in ((16, 300), (2, 2048)):
+    nn_err = fwd_err = bwd_err = 0.0
+    for b, n, m in ((16, 300, 300), (2, 2048, 2048), (3, 300, 77)):
         x = torch.tensor(rng.uniform(size=(b, n, 3)), dtype=torch.float32, device=dev)
-        y = torch.tensor(rng.uniform(size=(b, n, 3)), dtype=torch.float32, device=dev)
+        y = torch.tensor(rng.uniform(size=(b, m, 3)), dtype=torch.float32, device=dev)
         (m1, i1), (m2, i2) = ck.nn_directional(x, y), ck.nn_directional(y, x)
         (p1, j1), (p2, j2) = ck.nn_directional_plain(x, y), ck.nn_directional_plain(y, x)
-        _require(torch.equal(i1, j1) and torch.equal(i2, j2), f"argmin mismatch at B={b} N={n}")
+        _require(torch.equal(i1, j1) and torch.equal(i2, j2), f"argmin mismatch at B={b} N={n} M={m}")
         err_min = max(_max_err(m1, p1), _max_err(m2, p2))
-        _require(err_min <= 1e-6, f"nn minima differ by {err_min} at B={b} N={n}")
-        fwd_err = max(fwd_err, err_min)
+        _require(err_min <= 1e-6, f"nn minima differ by {err_min} at B={b} N={n} M={m}")
+        nn_err = max(nn_err, err_min)
+        # the whole forward in one launch: both argmin lists, the per-item means, twice the same bits
+        parts, f1, f2 = ck.forward_fused(x, y)
+        want_parts, w1, w2 = ck.forward_fused_plain(x, y)
+        _require(torch.equal(f1, w1) and torch.equal(f2, w2), f"fused forward: argmin mismatch at B={b} N={n} M={m}")
+        err_parts = _max_err(parts, want_parts)
+        _require(err_parts <= 1e-6, f"fused forward: loss parts differ by {err_parts} at B={b} N={n} M={m}")
+        fwd_err = max(fwd_err, err_parts)
+        again = ck.forward_fused(x, y)
+        _require(all(torch.equal(u, v) for u, v in zip(again, (parts, f1, f2))), "fused forward not bit-reproducible")
         loss, _, _ = ck.chamfer_forward(x, y)
         ref = plain_chamfer(x, y)
         _require(abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref)), f"loss {float(loss)} vs {float(ref)}")
@@ -149,42 +182,57 @@ def phase_chamfer(torch, dev, rec):
         dx, dy = ck.side_grad(x, y, i1, i2, g), ck.side_grad(y, x, i2, i1, g)
         ex, ey = ck.side_grad_plain(x, y, j1, j2, g), ck.side_grad_plain(y, x, j2, j1, g)
         err_grad = max(_max_err(dx, ex), _max_err(dy, ey))
-        _require(err_grad <= 1e-6, f"chamfer backward differs by {err_grad} at B={b} N={n}")
+        _require(err_grad <= 1e-6, f"chamfer backward differs by {err_grad} at B={b} N={n} M={m}")
         bwd_err = max(bwd_err, err_grad)
-        # the autograd path runs both kernels and returns the same gradient
+        # the autograd path runs the fused forward and the backward kernel and returns the same gradient
         xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+        before = ck.forward_fused.launches, ck.nn_directional.launches
         ck.chamfer_loss(xg, yg).backward()
+        _require((ck.forward_fused.launches, ck.nn_directional.launches) == (before[0] + 1, before[1]),
+                 "chamfer_loss must make one fused forward launch and no one-direction launch")
         _require(torch.equal(xg.grad, dx) and torch.equal(yg.grad, dy), "autograd gradient differs")
-        print(f"  chamfer B={b} N=M={n}: loss {float(loss):.7f} (plain {float(ref):.7f}), "
-              f"argmins equal, max|dmin| {err_min:.3g}, max|dgrad| {err_grad:.3g}")
-        if n > 512:  # the TPU's tiled regime (N*M > 512^2): time it too
-            bound = _bound(b * 2 * n * 12 + b * n * 8, b * n * n * 9)
-            print(f"  chamfer_nn_forward B={b} N=M={n}: kernel {graph_ms(lambda: ck.nn_directional(x, y)):.4f} ms, "
-                  f"plain {graph_ms(lambda: ck.nn_directional_plain(x, y)):.4f} ms, "
-                  f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}")
+        print(f"  chamfer B={b} N={n} M={m}: loss {float(loss):.7f} (plain {float(ref):.7f}), argmins equal (one-launch "
+              f"forward and one-direction search), max|dparts| {err_parts:.3g}, max|dmin| {err_min:.3g}, "
+              f"max|dgrad| {err_grad:.3g}, repeat run bit-equal")
+        if n > 512:  # the TPU's tiled regime (N*M > 512^2): the one-direction search's row of the table
+            rec["chamfer_nn_forward"].update(
+                ms=graph_ms(lambda: ck.nn_directional(x, y)), plain_ms=graph_ms(lambda: ck.nn_directional_plain(x, y)),
+                library_ms=None, shape=[b, n, m], **_bound(b * (n + m) * 12 + b * n * 8, b * n * m * 9),
+            )
+            r = rec["chamfer_nn_forward"]
+            fused_ms, earlier_ms = graph_ms(lambda: ck.forward_fused(x, y)), graph_ms(lambda: _earlier_forward(torch, ck, x, y))
+            print(f"  chamfer_nn_forward B={b} N=M={n}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}; the whole forward there: one launch {fused_ms:.4f} ms, "
+                  f"earlier route {earlier_ms:.4f} ms, on {card}")
+    rec["chamfer_nn_forward"]["max_abs_err"] = nn_err
     # duplicated points: every point appears twice; ties go to the lowest index
     base = torch.tensor(rng.uniform(size=(2, 100, 3)), dtype=torch.float32, device=dev)
     dup = torch.cat([base, base], dim=1).contiguous()
     _, idx = ck.nn_directional(dup, dup)
     _, idx_p = ck.nn_directional_plain(dup, dup)
+    _, f1, f2 = ck.forward_fused(dup, dup)
     want = (torch.arange(200, device=dev) % 100).to(torch.int32).expand(2, -1)
-    _require(torch.equal(idx, want) and torch.equal(idx_p, want), "duplicate points: ties not lowest-index")
-    print("  chamfer duplicated points: argmins are the lowest index (kernel and plain)")
+    _require(all(torch.equal(got, want) for got in (idx, idx_p, f1, f2)), "duplicate points: ties not lowest-index")
+    print("  chamfer duplicated points: argmins are the lowest index (both kernels and plain)")
 
     x = torch.tensor(rng.uniform(size=(16, 300, 3)), dtype=torch.float32, device=dev)
     y = torch.tensor(rng.uniform(size=(16, 300, 3)), dtype=torch.float32, device=dev)
-    _, i1 = ck.nn_directional(x, y)
-    _, i2 = ck.nn_directional(y, x)
+    _, i1, i2 = ck.forward_fused(x, y)
     g = torch.tensor(1.0, device=dev)
     b, n, m = 16, 300, 300
-    # forward, one direction: both clouds in, (min, argmin) per query out; per
-    # pair 3 subtractions, 3 products, 2 sums and a comparison
-    rec["chamfer_nn_forward"].update(
+    # the whole forward: both clouds in, both argmin lists and two means per
+    # item out; each pair's distance once (3 products and 2 sums for the dot,
+    # a sum, a product, a difference, a clamp) and a comparison per direction
+    rec["chamfer_forward"].update(
         max_abs_err=fwd_err,
-        ms=graph_ms(lambda: ck.nn_directional(x, y)),
-        plain_ms=graph_ms(lambda: ck.nn_directional_plain(x, y)),
+        ms=graph_ms(lambda: ck.forward_fused(x, y)),
+        plain_ms=graph_ms(lambda: ck.forward_fused_plain(x, y)),
         library_ms=None,
-        **_bound(b * (n + m) * 12 + b * n * 8, b * n * m * 9),
+        earlier_ms=graph_ms(lambda: _earlier_forward(torch, ck, x, y)),
+        one_direction_ms=graph_ms(lambda: ck.nn_directional(x, y)),
+        launch_floor_ms=floor_ms,
+        cluster=native.cluster_size(b, dev),
+        **_bound(b * (n + m) * 12 + b * (n + m) * 4 + b * 8, b * n * m * 11),
     )
     # backward, one cloud: both clouds, both argmin lists and g in, the
     # gradient out; per point of either cloud one unit vector (~12 operations)
@@ -195,10 +243,20 @@ def phase_chamfer(torch, dev, rec):
         library_ms=None,
         **_bound(b * (n + m) * 12 + b * (n + m) * 4 + 4 + b * n * 12, b * (n + m) * 12),
     )
-    for name in ("chamfer_nn_forward", "chamfer_backward"):
-        r = rec[name]
-        print(f"  {name} B=16 N=M=300: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (a launch costs more than that)")
+    # the same launch by cluster size: the wrapper's choice rests on where this row steps up (a second wave)
+    sizes = range(1, native.MAX_CLUSTER + 1)
+    at_once = [native.max_active_clusters(c, dev) for c in sizes]
+    r = rec["chamfer_forward"]
+    r["by_cluster_ms"] = [graph_ms(lambda: ck._launch_fused(x, y, cluster=c)) for c in sizes]
+    print(f"  clusters of 1..8 blocks, one block to an SM, that the card runs at once: {at_once}")
+    print(f"  chamfer_forward B=16 N=M=300 in clusters of 1..8 blocks: "
+          + ", ".join(f"{t:.4f}" for t in r["by_cluster_ms"]) + f" ms (the wrapper takes {r['cluster']}), on {card}")
+    print(f"  chamfer_forward B=16 N=M=300: one launch {r['ms']:.4f} ms in clusters of {r['cluster']} blocks; earlier route (two one-direction launches of "
+          f"{r['one_direction_ms']:.4f} ms and five PyTorch launches) {r['earlier_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
+          f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (an empty launch costs {floor_ms:.5f} ms), on {card}")
+    r = rec["chamfer_backward"]
+    print(f"  chamfer_backward B=16 N=M=300: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (a launch costs more than that)")
 
 
 # every BatchNorm input of the generator at bs 16, by path: 224^2 for MS-CMRSeg,
@@ -276,6 +334,7 @@ def _launch_counts():
     from pointcloududa_torch.ops import fps_kernel as fk
 
     return {
+        "chamfer_forward": ck.forward_fused.launches,
         "chamfer_nn_forward": ck.nn_directional.launches,
         "chamfer_backward": ck.side_grad.launches,
         "bn_stats_forward": bk.stats_forward.launches,
@@ -358,8 +417,11 @@ def phase_train_step(torch, dev, rec, card):
         bad = [k for k, v in values.items() if not np.isfinite(v)]
         _require(not bad, f"step {i}: non-finite metrics {bad}")
         print(f"  step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(values.items())))
-    _record_launches(rec, "mscmrseg", counts, set(counts) - {"fps"})
+    # the one-direction search serves large clouds only: no path runs it
+    _record_launches(rec, "mscmrseg", counts, set(counts) - {"fps", "chamfer_nn_forward"})
     _require(counts["fps"] == 0, "the MS-CMRSeg step regenerates no clouds")
+    _require((counts["chamfer_forward"], counts["chamfer_nn_forward"], counts["chamfer_backward"]) == (2 * STEPS, 0, STEPS),
+             f"per step the Chamfer loss must launch 2 fused forwards, no one-direction search and 1 backward: {counts}")
     print(f"  launches in {STEPS} steps: {counts}")
     # the first step pays cuDNN's algorithm choice and the allocator's growth
     print(f"  train step (bs 16, 224^2, f32, D1+D2+D4, both kernels): median {statistics.median(times[1:]):.2f} ms "
@@ -435,6 +497,7 @@ def phase_fps(torch, dev, rec, card):
     from pointcloududa_torch.data.synthetic import synthetic_blob_masks, synthetic_raw_batch
     from pointcloududa_torch.ops import fps_kernel as fk
     from pointcloududa_torch.ops import pointcloud_device as pcd
+    from pointcloududa_torch.utils import native
     from pointcloududa_torch.utils.timing import graph_ms
 
     size, b, k = 256, 16, 300
@@ -444,29 +507,54 @@ def phase_fps(torch, dev, rec, card):
     few = np.zeros((2, size, size), np.uint8)
     few[0, 100:108, 60:72] = 3  # 96 pixels: 2 * 96 face + 36 ring candidates < k
     few[1, 5:12, 200:209] = 1
+    ellipses = torch.as_tensor(synthetic_blob_masks(b, size, seed=0), device=dev)
+    ellipse_cand = pcd.candidates(ellipses > 0)
+    # name -> (masks or None, candidates, starts); starts None: drawn among the candidates
     cases = {
-        "ellipses": synthetic_blob_masks(b, size, seed=0),
-        "random labels": synthetic_raw_batch(cfg, b, seed=0)["mask_s"],
-        "fewer than k candidates": few,
+        "ellipses": (ellipses, ellipse_cand, None),
+        "random labels": (torch.as_tensor(synthetic_raw_batch(cfg, b, seed=0)["mask_s"], device=dev), None, None),
+        "fewer than k candidates": (torch.as_tensor(few, device=dev), None, None),
+        # every candidate valid: 24,576 or more a block, beyond what its shared memory holds
+        "every candidate valid": (None, torch.ones_like(ellipse_cand), pcd.draw_starts(ellipses, gen)),
+        # the first point is coords[start] whether or not start is valid
+        "invalid start": (None, ellipse_cand, torch.argmin(ellipse_cand.to(torch.int32), dim=1).to(torch.int32)),
+        # more clouds than the card runs clusters at once
+        "B=40": (torch.as_tensor(synthetic_blob_masks(40, size, seed=5), device=dev), None, None),
     }
+    geometry = fk.launch_geometry(b, 3 * size * size, dev)
+    print(f"  fps launch at B={b} P={3 * size * size}: a cluster of {geometry['cluster']} blocks of {geometry['threads']} "
+          f"threads per cloud ({geometry['clusters_at_once']} such clusters run at once on this card; 8 blocks: "
+          f"{native.max_active_clusters(8, dev)}), {geometry['shared_bytes']} bytes of shared memory a block = "
+          f"{geometry['capacity']} candidates resident, up to {geometry['overflow']} more in its scratch row; "
+          f"at B=40: clusters of {native.cluster_size(40, dev)}")
     timed, worst = {}, 0.0
-    for name, masks in cases.items():
-        masks = torch.as_tensor(masks, device=dev)
-        cand = pcd.candidates(masks > 0)
-        starts = pcd.draw_starts(masks, gen)
-        grid = coords.expand(masks.shape[0], -1, -1)  # batch stride 0: one grid for all
+    for name, (masks, cand, starts) in cases.items():
+        if cand is None:
+            cand = pcd.candidates(masks > 0)
+        if starts is None:
+            starts = pcd.draw_starts(masks, gen)
+        grid = coords.expand(cand.shape[0], -1, -1)  # batch stride 0: one grid for all
         got, want = fk.fps(cand, grid, starts, k), fk.fps_plain(cand, grid, starts, k)
         torch.cuda.synchronize()
         worst = max(worst, _max_err(got, want))
         _require(torch.equal(got, want), f"FPS kernel differs from its plain version on {name}")
-        _require(bool(torch.isfinite(got).all()) and _on_candidates(torch, got, masks), f"FPS points off the candidates on {name}")
+        _require(bool(torch.isfinite(got).all()), f"FPS points not finite on {name}")
+        if masks is not None:
+            _require(_on_candidates(torch, got, masks), f"FPS points off the candidates on {name}")
+        if name == "invalid start":
+            first = got[:, 0].round().long()
+            _require(not bool(cand[torch.arange(b, device=dev), (first[:, 0] * size + first[:, 1]) * size + first[:, 2]].any()),
+                     "this case must start off the candidates")
         n_valid = cand.sum(1)
         distinct = [len({tuple(pt) for pt in cloud.tolist()}) for cloud in got[:2]]
-        print(f"  fps {name}: B={masks.shape[0]} P={cand.shape[1]} k={k}, kernel == plain; valid candidates per cloud "
+        print(f"  fps {name}: B={cand.shape[0]} P={cand.shape[1]} k={k}, kernel == plain; valid candidates per cloud "
               f"{int(n_valid.min())}..{int(n_valid.max())}; distinct points in clouds 0, 1: {distinct}")
         if name == "fewer than k candidates":
             _require(max(distinct) < k and int(n_valid.max()) < k, "this case must run out of candidates")
-        timed[name] = (cand, grid, starts, float(n_valid.sum()))
+        if name == "every candidate valid":
+            _require(int(n_valid.min()) > geometry["cluster"] * geometry["capacity"], "this case must exceed the shared memory")
+        if name not in ("invalid start", "B=40"):
+            timed[name] = (cand, grid, starts, float(n_valid.sum()))
 
     # zero clouds: an empty mask and a mask of exactly 50 pixels, beside a live one
     masks = torch.zeros((3, size, size), dtype=torch.uint8, device=dev)
@@ -508,9 +596,15 @@ def phase_fps(torch, dev, rec, card):
               f"{bound.get('bytes_ms', 0.0):.4f} ms, operations {bound.get('operations_ms', 0.0):.4f} ms; "
               f"{n_valid / nb:.0f} valid candidates per cloud), on {card}")
         if name == "ellipses":  # the kernel table carries the masks that look like anatomy
-            rec["fps"].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
-    # what a round of this kernel costs with next to nothing to scan: one
-    # candidate per thread, so the barriers, the argmax and the dependent load remain
+            rec["fps"].update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                              cluster=geometry["cluster"], shared_bytes=geometry["shared_bytes"], **bound)
+            rec["fps"]["by_cluster_ms"] = [graph_ms(lambda: fk._launch(cand, grid, starts, k, cluster=c), iters=3, replays=3)
+                                           for c in range(1, native.MAX_CLUSTER + 1)]
+            print(f"  fps ellipses B={nb} in clusters of 1..8 blocks: " + ", ".join(f"{t:.4f}" for t in rec["fps"]["by_cluster_ms"])
+                  + f" ms (the wrapper takes {geometry['cluster']}), on {card}")
+    # what a round of this kernel costs with next to nothing to sweep: one
+    # candidate per thread of one block (the other blocks of the cluster hold
+    # none), so the reductions, the hand-over and the barriers remain
     tiny = torch.ones((b, 1024), dtype=torch.bool, device=dev)
     tcoords = torch.tensor(rng.normal(size=(b, 1024, 3)), dtype=torch.float32, device=dev)
     tstarts = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -519,6 +613,7 @@ def phase_fps(torch, dev, rec, card):
     ms = graph_ms(lambda: fk.fps(tiny, tcoords, tstarts, k), iters=3, replays=3)
     print(f"  fps one candidate per thread B={b} P=1024 k={k}: kernel {ms:.4f} ms = {ms * 1e3 / (k - 1):.2f} us a round "
           f"(the measured chain of this design, beside the {FPS_ROUND_FLOOR_US} us assumed for the bound), on {card}")
+    rec["fps"]["max_abs_err"] = worst  # over every case above
 
 
 def phase_mmwhs(torch, dev, rec, card):
@@ -568,7 +663,10 @@ def phase_mmwhs(torch, dev, rec, card):
         _require(not bad, f"MM-WHS step {i}: non-finite metrics {bad}")
         print(f"  step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(values.items())))
     _require(counts["fps"] == 2 * MMWHS_STEPS, f"fps launched {counts['fps']} times in {MMWHS_STEPS} steps, not twice per step")
-    _record_launches(rec, "mmwhs", counts, set(counts))
+    _require((counts["chamfer_forward"], counts["chamfer_nn_forward"], counts["chamfer_backward"])
+             == (2 * MMWHS_STEPS, 0, MMWHS_STEPS),
+             f"per step the Chamfer loss must launch 2 fused forwards, no one-direction search and 1 backward: {counts}")
+    _record_launches(rec, "mmwhs", counts, set(counts) - {"chamfer_nn_forward"})
     print(f"  launches in {MMWHS_STEPS} preprocess + step calls: {counts}")
     # the first call pays cuDNN's algorithm choice and the allocator's growth
     print(f"  MM-WHS device preprocess (bs 16, 256^2, light augmentation of both streams + 32 clouds by the FPS "
@@ -663,19 +761,33 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     rec = {name: dict(name=name, **meta) for name, meta in KERNELS.items()}
+    seconds = {"build": time.perf_counter() - t0}
     print("(a) Chamfer kernels vs plain")
-    phase_chamfer(torch, dev, rec)
+    t0 = time.perf_counter()
+    phase_chamfer(torch, dev, rec, smi)
+    seconds["a"] = time.perf_counter() - t0
     print("(b) BN-statistics kernels vs plain")
+    t0 = time.perf_counter()
     phase_bn(torch, dev, rec)
+    seconds["b"] = time.perf_counter() - t0
     print("(c) train step")
+    t0 = time.perf_counter()
     cfg = phase_train_step(torch, dev, rec, smi)
     phase_step_parity(torch, dev, cfg)
+    seconds["c"] = time.perf_counter() - t0
     print("(d) eval step")
+    t0 = time.perf_counter()
     phase_eval(torch, dev, cfg)
+    seconds["d"] = time.perf_counter() - t0
     print("(e) FPS kernel vs plain")
+    t0 = time.perf_counter()
     phase_fps(torch, dev, rec, smi)
+    seconds["e"] = time.perf_counter() - t0
     print("(f) MM-WHS path: raw batch -> device preprocess -> train step")
+    t0 = time.perf_counter()
     phase_mmwhs(torch, dev, rec, smi)
+    seconds["f"] = time.perf_counter() - t0
+    print("host seconds by phase: " + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
 
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms"}

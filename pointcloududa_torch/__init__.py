@@ -5,7 +5,8 @@ The layout mirrors the JAX package, so each module's counterpart is easy to
 find:
 
 - ``ops``    : losses; the hand-written CUDA kernels with their wrappers
-               (``chamfer_kernel``: Chamfer nearest neighbour and backward;
+               (``chamfer_kernel``: the Chamfer forward in one launch, the
+               one-direction nearest-neighbour search and the backward;
                ``bn_kernel``: BN batch statistics; ``fps_kernel``:
                farthest-point sampling); ``pointcloud_device`` (mask -> point
                cloud on the device); ``augment`` (the light augmentation

@@ -2,11 +2,14 @@
 ``csrc/chamfer.cu``, the counterpart of ``pointcloududa_tpu/ops/chamfer_pallas.py``.
 
 :func:`chamfer_loss` is a drop-in for ``ops.losses.chamfer_loss`` (without
-``sample_mask``). The forward finds each point's nearest neighbour in the other
-cloud, one direction at a time (:func:`nn_directional`); the loss is the mean
-of ``sqrt(min + 1e-5)`` in each direction. The backward needs only the argmin
-indices (:func:`side_grad`): ``d|x_i - y_a(i)| / dx_i`` is the unit vector of
-the pair, and the scatter onto the partners is summed without atomics.
+``sample_mask``). The forward is one launch (:func:`forward_fused`, the
+counterpart of ``_chamfer_fwd``): each point's nearest neighbour in the other
+cloud, both directions, and per item the mean of ``sqrt(min + 1e-5)`` in each
+direction; the loss is one reduction over those (B, 2) means. The backward
+needs only the argmin indices (:func:`side_grad`): ``d|x_i - y_a(i)| / dx_i``
+is the unit vector of the pair, and the scatter onto the partners is summed
+without atomics. :func:`nn_directional` is the one-direction search on its
+own (the counterpart of ``_nn_directional_tiled``); the loss does not use it.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises, and counts the
 launch in its ``launches`` attribute. Only a CPU tensor takes the plain PyTorch
@@ -68,6 +71,57 @@ def nn_directional(a: torch.Tensor, c: torch.Tensor):
 nn_directional.launches = 0
 
 
+def forward_fused_plain(x: torch.Tensor, y: torch.Tensor):
+    """(B, N, D), (B, M, D) -> ``loss_parts`` (B, 2) f32 with the per-item
+    means of ``sqrt(min + 1e-5)`` over x's points and over y's points,
+    ``idx1`` (B, N) and ``idx2`` (B, M) int32: the lowest argmins of either
+    direction. ``batch_pairwise_dist(y, x)`` is the exact transpose of
+    ``batch_pairwise_dist(x, y)`` (sums and products commute), so the second
+    direction is searched along rows too, where ``torch.min`` keeps the
+    lowest index of a tie."""
+    min1, idx1 = nn_directional_plain(x, y)
+    min2, idx2 = nn_directional_plain(y, x)
+    parts = torch.stack([torch.sqrt(min1 + EPS).mean(dim=1), torch.sqrt(min2 + EPS).mean(dim=1)], dim=1)
+    return parts, idx1, idx2
+
+
+def _launch_fused(x: torch.Tensor, y: torch.Tensor, cluster: int | None = None):
+    """One launch of the fused forward; ``cluster`` (blocks per item, 1..8)
+    defaults to ``native.cluster_size``: the largest cluster of which the
+    device runs all B at once when every block takes a whole SM. That choice
+    is empirical: these blocks are small and the occupancy calculator promises
+    several times as many clusters of them, yet the launch's time steps up where
+    the whole-SM count runs out (``chip_smoke.py`` phase (a) prints the time by
+    cluster size beside it)."""
+    _check_clouds(x, y)
+    b, n, _ = x.shape
+    m = y.shape[1]
+    if cluster is None:
+        cluster = native.cluster_size(b, x.device)
+    idx1 = torch.empty((b, n), dtype=torch.int32, device=x.device)
+    idx2 = torch.empty((b, m), dtype=torch.int32, device=x.device)
+    parts = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        status = native.load().pcuda_chamfer_forward(
+            x.data_ptr(), y.data_ptr(), idx1.data_ptr(), idx2.data_ptr(), parts.data_ptr(), b, n, m, cluster, _stream(x)
+        )
+    native.check(status, "pcuda_chamfer_forward")
+    forward_fused.launches += 1
+    return parts, idx1, idx2
+
+
+def forward_fused(x: torch.Tensor, y: torch.Tensor):
+    """The whole Chamfer forward in one launch; see
+    :func:`forward_fused_plain`. Call it once before capturing it in a CUDA
+    graph (the first call asks the device how many clusters it runs at once)."""
+    if x.device.type == "cpu":
+        return forward_fused_plain(x, y)
+    return _launch_fused(x, y)
+
+
+forward_fused.launches = 0
+
+
 def side_grad_plain(a, c, idx_ac, idx_ca, g):
     """Gradient of the Chamfer loss with respect to cloud ``a``:
     ``g/(B n) u_i - g/(B m) sum_{k: idx_ca[k] == i} v_k`` with ``u_i`` the unit
@@ -115,10 +169,8 @@ def chamfer_forward(x: torch.Tensor, y: torch.Tensor):
     """(loss, idx1, idx2): the loss and both directions' argmins."""
     x = x.to(torch.float32).contiguous()
     y = y.to(torch.float32).contiguous()
-    min1, idx1 = nn_directional(x, y)
-    min2, idx2 = nn_directional(y, x)
-    loss = torch.mean(torch.sqrt(min1 + EPS)) + torch.mean(torch.sqrt(min2 + EPS))
-    return loss, idx1, idx2
+    parts, idx1, idx2 = forward_fused(x, y)
+    return parts.sum() / parts.shape[0], idx1, idx2
 
 
 class _ChamferLoss(torch.autograd.Function):
@@ -148,5 +200,6 @@ def chamfer_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def reset_launches() -> None:
+    forward_fused.launches = 0
     nn_directional.launches = 0
     side_grad.launches = 0

@@ -12,15 +12,28 @@ gradient.
 The wrapper launches its kernel for a CUDA tensor, or raises, and counts the
 launch in ``fps.launches``. Only a CPU tensor takes the plain PyTorch version
 beside it (:func:`fps_plain`).
+
+The kernel runs one thread-block cluster per cloud and keeps each block's
+valid candidates in shared memory; :func:`launch_geometry` says how a launch
+is shaped (cluster size, shared-memory bytes, capacity in candidates, and the
+scratch row for what exceeds it). A block takes a whole SM, so the cluster is
+the largest of which the device runs the whole batch at once
+(``native.cluster_size``): no cloud waits for a second wave.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from pointcloududa_torch.utils import native
 
 NEG = -1e30  # running distance of an invalid candidate
+CHUNK = 1024  # original indices dealt to one block at a time (the kernel's block size)
+BYTES_PER_CANDIDATE = 20  # z, y, x, running distance, original index
+
+_device_capacity: dict[int, int] = {}  # device index -> candidates one block's shared memory holds
 
 
 def _check(valid: torch.Tensor, coords: torch.Tensor, starts: torch.Tensor, k: int) -> None:
@@ -65,13 +78,49 @@ def fps_plain(valid: torch.Tensor, coords: torch.Tensor, starts: torch.Tensor, k
     return out
 
 
-@torch.no_grad()
-def fps(valid: torch.Tensor, coords: torch.Tensor, starts: torch.Tensor, k: int) -> torch.Tensor:
-    """Batched farthest-point sampling; see :func:`fps_plain`. ``coords`` may
-    be a broadcast view with batch stride 0 (one grid shared by every cloud):
-    the kernel reads it through its stride, no copy is made."""
-    if valid.device.type == "cpu":
-        return fps_plain(valid, coords, starts, k)
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def device_capacity(device: torch.device) -> int:
+    """Candidates that one block's shared memory holds on ``device``, a whole
+    number of block-wide passes. The first call per device also lets the
+    kernel use that much dynamic shared memory, which must happen outside a
+    CUDA-graph capture: call :func:`fps` once before capturing it."""
+    index = _index(device)
+    if index not in _device_capacity:
+        capacity = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            status = native.load().pcuda_fps_configure(ctypes.byref(capacity))
+        native.check(status, "pcuda_fps_configure")
+        _device_capacity[index] = capacity.value // CHUNK * CHUNK
+    return _device_capacity[index]
+
+
+def launch_geometry(b: int, p: int, device: torch.device, capacity: int | None = None, cluster: int | None = None) -> dict:
+    """How a launch over ``b`` clouds of ``p`` candidates is shaped. The ``p``
+    indices are dealt to the ``cluster`` blocks of a cloud in chunks of
+    ``CHUNK``, round-robin; ``dealt`` is the most one block can get. A block
+    keeps ``capacity`` valid candidates in ``shared_bytes`` of shared memory
+    (all it can be dealt, or all the device allows) and up to ``overflow``
+    more in its row of a global scratch buffer. ``capacity`` overrides the
+    choice (the tests force the overflow branch and a refused launch with it),
+    ``cluster`` the blocks per cloud (to time a size the device runs in waves)."""
+    if cluster is None:
+        cluster = native.cluster_size(b, device)
+    chunks = -(-p // CHUNK)
+    dealt = -(-chunks // cluster) * CHUNK
+    if capacity is None:
+        capacity = min(dealt, device_capacity(device))
+    if capacity < CHUNK or capacity % CHUNK:
+        raise ValueError(f"capacity must be a positive multiple of {CHUNK}, got {capacity}")
+    return dict(
+        cluster=cluster, threads=CHUNK, dealt=dealt, capacity=capacity, shared_bytes=capacity * BYTES_PER_CANDIDATE,
+        overflow=max(0, dealt - capacity), clusters_at_once=native.max_active_clusters(cluster, device),
+    )
+
+
+def _launch(valid, coords, starts, k: int, capacity: int | None = None, cluster: int | None = None) -> torch.Tensor:
     _check(valid, coords, starts, k)
     if valid.device.type != "cuda":
         raise ValueError(f"the FPS kernel runs on CUDA tensors only, got {valid.device}")
@@ -80,17 +129,30 @@ def fps(valid: torch.Tensor, coords: torch.Tensor, starts: torch.Tensor, k: int)
         coords = coords.contiguous()
     valid = valid.contiguous().view(torch.uint8)
     starts = starts.contiguous()
-    dist = torch.empty((b, p), dtype=torch.float32, device=valid.device)  # running distances
+    geometry = launch_geometry(b, p, valid.device, capacity, cluster)
+    # a block's candidates beyond its shared memory: five words each, like the resident ones
+    words = b * geometry["cluster"] * 5 * geometry["overflow"]
+    scratch = torch.empty(max(1, words), dtype=torch.float32, device=valid.device)
     out = torch.empty((b, k, 3), dtype=torch.float32, device=valid.device)
     with torch.cuda.device(valid.device):
         status = native.load().pcuda_fps(
             valid.data_ptr(), coords.data_ptr(), coords.stride(0) if b > 1 else 0, starts.data_ptr(),
-            dist.data_ptr(), out.data_ptr(), b, p, k,
+            scratch.data_ptr(), out.data_ptr(), b, p, k, geometry["capacity"], geometry["overflow"], geometry["cluster"],
             torch.cuda.current_stream(valid.device).cuda_stream,
         )
     native.check(status, "pcuda_fps")
     fps.launches += 1
     return out
+
+
+@torch.no_grad()
+def fps(valid: torch.Tensor, coords: torch.Tensor, starts: torch.Tensor, k: int) -> torch.Tensor:
+    """Batched farthest-point sampling; see :func:`fps_plain`. ``coords`` may
+    be a broadcast view with batch stride 0 (one grid shared by every cloud):
+    the kernel reads it through its stride, no copy is made."""
+    if valid.device.type == "cpu":
+        return fps_plain(valid, coords, starts, k)
+    return _launch(valid, coords, starts, k)
 
 
 fps.launches = 0

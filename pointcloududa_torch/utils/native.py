@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels (``pointcloududa_torch/csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface and loaded with ``ctypes``: no PyTorch headers are compiled, so a
-build takes seconds. The library is built at first use into
+The sources are compiled by one ``nvcc -shared`` call into one shared library
+with a plain C interface and loaded with ``ctypes``: no PyTorch headers are
+compiled, so a build takes seconds. The library is built at first use into
 ``build/pointcloududa_torch/`` at the repository root (git-ignored), under a
 name keyed on a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is reused. A failed build raises; nothing falls back.
@@ -22,12 +22,15 @@ import shutil
 import subprocess
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "pointcloududa_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--threads", "0",  # nvcc compiles the sources side by side, one thread each
 )
 
 _P = ctypes.c_void_p
@@ -35,16 +38,23 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
+    "pcuda_chamfer_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_chamfer_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "pcuda_chamfer_side_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "pcuda_bn_stats_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_bn_stats_backward": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "pcuda_fps": (_P, _P, _L, _P, _P, _P, _I, _I, _I, _P),
+    "pcuda_fps": (_P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pcuda_fps_configure": (_P,),
+    "pcuda_empty_launch": (_P,),
+    "pcuda_max_active_clusters": (_I, _P),
 }
+
+MAX_CLUSTER = 8  # blocks in a thread-block cluster at most (the portable maximum)
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output of the build this process ran (ptxas usage)
+_active_clusters: dict[tuple[int, int], int] = {}  # (device index, cluster size) -> clusters running at once
 
 
 def sources() -> list[str]:
@@ -113,3 +123,27 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = load().pcuda_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+def max_active_clusters(cluster: int, device: torch.device) -> int:
+    """How many clusters of ``cluster`` blocks ``device`` runs at once when
+    every block takes a whole SM (``csrc/device.cu`` asks the occupancy
+    calculator about a block of 1024 threads with all the shared memory a
+    block may have). A cluster lies inside one GPC, so fewer clusters of 8
+    fit than the SM count suggests."""
+    key = (torch.cuda.current_device() if device.index is None else device.index, cluster)
+    if key not in _active_clusters:
+        clusters = ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            check(load().pcuda_max_active_clusters(cluster, ctypes.byref(clusters)), "pcuda_max_active_clusters")
+        _active_clusters[key] = clusters.value
+    return _active_clusters[key]
+
+
+def cluster_size(b: int, device: torch.device) -> int:
+    """Blocks per item for a kernel that shares each of ``b`` items among a
+    cluster: the largest cluster of which the device runs ``b`` at once with
+    one block to an SM, so that no item waits for a second wave; one block per
+    item when the batch exceeds even that. The first call per device and size
+    queries the device and must happen outside a CUDA-graph capture."""
+    return max((c for c in range(1, MAX_CLUSTER + 1) if max_active_clusters(c, device) >= b), default=1)

@@ -76,6 +76,39 @@ def test_ties_take_the_lowest_index():
     _check_against_jax(dup, dup)
 
 
+def _fused_case(kind):
+    if kind == "n_above_m":
+        return _clouds(21, 2, 57, 33)
+    if kind == "n_below_m":
+        return _clouds(22, 3, 20, 75)
+    base, _ = _clouds(23, 2, 40, 1)  # every point twice: each argmin is a tie
+    dup = np.concatenate([base, base], axis=1)
+    return dup, dup.copy()
+
+
+@pytest.mark.parametrize("kind", ["n_above_m", "n_below_m", "duplicated_points"])
+def test_fused_forward_matches_the_jax_kernel(kind):
+    """The one-launch forward's three outputs against ``_chamfer_fwd`` (the
+    Pallas kernel, interpret mode): per-item means rtol 1e-5 (f32 sums in
+    another order), argmins equal."""
+    x, y = _fused_case(kind)
+    want_parts, want_i1, want_i2 = chamfer_pallas._chamfer_fwd(jnp.asarray(x), jnp.asarray(y))
+    ck.reset_launches()
+    parts, i1, i2 = ck.forward_fused(torch.tensor(x), torch.tensor(y))
+    assert ck.forward_fused.launches == 0  # CPU tensors: the plain version, no launch
+    assert tuple(parts.shape) == (x.shape[0], 2) and parts.dtype == torch.float32
+    assert i1.dtype == torch.int32 and i2.dtype == torch.int32
+    np.testing.assert_allclose(parts.numpy(), np.asarray(want_parts), rtol=1e-5)
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(want_i1))
+    np.testing.assert_array_equal(i2.numpy(), np.asarray(want_i2))
+    if kind == "duplicated_points":
+        half = x.shape[1] // 2
+        np.testing.assert_array_equal(i1.numpy(), np.tile(np.arange(2 * half) % half, (x.shape[0], 1)))
+    # the loss is one reduction over the (B, 2) means, as the JAX package takes it
+    loss, _, _ = ck.chamfer_forward(torch.tensor(x), torch.tensor(y))
+    np.testing.assert_allclose(float(loss), float(parts[:, 0].mean() + parts[:, 1].mean()), rtol=1e-6)
+
+
 def test_sample_mask_matches_jax():
     """The padded-tail path: the masked plain loss, value and gradients."""
     x, y = _clouds(8, 4, 30, 30)
@@ -106,4 +139,7 @@ def test_cpu_tensors_take_the_plain_versions():
     g = torch.tensor(1.0)
     _, idx2 = ck.nn_directional(y, x)
     assert torch.equal(ck.side_grad(x, y, idx, idx2, g), ck.side_grad_plain(x, y, idx, idx2, g))
-    assert ck.nn_directional.launches == 0 and ck.side_grad.launches == 0
+    parts, f1, f2 = ck.forward_fused(x, y)
+    assert torch.equal(f1, idx) and torch.equal(f2, idx2)
+    assert torch.equal(parts, ck.forward_fused_plain(x, y)[0])
+    assert ck.nn_directional.launches == 0 and ck.side_grad.launches == 0 and ck.forward_fused.launches == 0

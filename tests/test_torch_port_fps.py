@@ -107,6 +107,80 @@ def test_fps_plain_equals_fps_pallas_on_a_first_round_tie():
     np.testing.assert_array_equal(got[0, 1], coords[first].numpy())
 
 
+def _xla_fps_from_start(candidate, coords, k, start):
+    """The XLA route's loop (``pointcloud_device.py:_fps_grid``, lines 66-84)
+    from a given start instead of its own draw."""
+    candidate, coords = jnp.asarray(candidate), jnp.asarray(coords)
+
+    def sq_dist(idx):
+        diff = coords - coords[idx]
+        return jnp.sum(diff * diff, axis=-1)
+
+    d0 = jnp.where(candidate, sq_dist(start), jpc.NEG)
+    out0 = jnp.zeros((k, 3), jnp.float32).at[0].set(coords[start])
+
+    def body(i, carry):
+        d, out = carry
+        idx = jnp.argmax(d)
+        out = out.at[i].set(coords[idx])
+        return jnp.where(candidate, jnp.minimum(d, sq_dist(idx)), jpc.NEG), out
+
+    return np.asarray(jax.lax.fori_loop(1, k, body, (d0, out0))[1])
+
+
+def _risky_case(kind):
+    """(valid (1, P) bool, coords (P, 3) f32, start, k): the cases that a
+    kernel which shares a cloud among blocks, in chunks of 1024 original
+    indices dealt round-robin to 8 blocks, could get wrong."""
+    rng = np.random.default_rng(11)
+    if kind == "ties_1024_and_8192_apart":
+        # a cluster of points near the origin and three far points at one
+        # distance from it and from each other, at indices 5, 5 + 1024 (the
+        # next block's chunk) and 5 + 8 * 1024 (the same block's next chunk):
+        # the lowest original index must win each tie
+        p = 10 * 1024
+        coords = np.round(rng.uniform(-1, 1, size=(p, 3)) * 8) / 8
+        coords[0] = 0.0
+        coords[5], coords[5 + 1024], coords[5 + 8192] = (16, 0, 0), (0, 16, 0), (0, 0, 16)
+        return np.ones((1, p), bool), coords.astype(np.float32), 0, 6
+    if kind == "invalid_start":
+        p = 1280
+        valid = rng.uniform(size=(1, p)) < 0.5
+        valid[0, 7] = False
+        return valid, rng.normal(size=(p, 3)).astype(np.float32), 7, 12
+    if kind == "all_valid":
+        p = 2304
+        return np.ones((1, p), bool), rng.normal(size=(p, 3)).astype(np.float32), 100, 20
+    if kind == "one_valid":
+        p = 1152
+        valid = np.zeros((1, p), bool)
+        valid[0, 1100] = True
+        return valid, rng.normal(size=(p, 3)).astype(np.float32), 1100, 5
+    raise ValueError(kind)
+
+
+@pytest.mark.parametrize("kind", ["ties_1024_and_8192_apart", "invalid_start", "all_valid", "one_valid"])
+def test_fps_plain_equals_both_jax_routes_where_a_shared_cloud_is_at_risk(kind):
+    from jax.experimental.pallas import tpu as pltpu
+
+    valid, coords, start, k = _risky_case(kind)
+    starts = np.array([start], np.int32)
+    with pltpu.force_tpu_interpret_mode():
+        want_pallas = np.asarray(fps_pallas(jnp.asarray(valid), jnp.asarray(coords)[None], jnp.asarray(starts), k))
+    want_xla = _xla_fps_from_start(valid[0], coords, k, start)
+    got = fps_kernel.fps_plain(torch.tensor(valid), torch.tensor(coords)[None], torch.tensor(starts), k).numpy()
+    np.testing.assert_array_equal(got, want_pallas)
+    np.testing.assert_array_equal(got[0], want_xla)
+    np.testing.assert_array_equal(got[0, 0], coords[start])
+    if kind == "ties_1024_and_8192_apart":
+        np.testing.assert_array_equal(got[0, 1:4], coords[[5, 5 + 1024, 5 + 8192]])
+    if kind == "invalid_start":
+        chosen = {tuple(pt) for pt in got[0, 1:]}
+        assert tuple(coords[start]) not in chosen and chosen <= {tuple(pt) for pt in coords[valid[0]]}
+    if kind == "one_valid":
+        np.testing.assert_array_equal(got[0], np.tile(coords[1100], (k, 1)))
+
+
 def test_fps_takes_a_broadcast_grid_and_general_coordinates():
     """``coords`` with batch stride 0 gives what B copies give; on float
     coordinates with P not a multiple of 128 the sequence matches a direct
