@@ -7,8 +7,11 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
 
   (a) Chamfer: the one-launch forward, the one-direction nearest-neighbour
       search and the backward kernels against their plain PyTorch versions
-      on the card -- B=16, N=M=300; B=2, N=M=2048; N != M (300 x 77); and a
-      cloud of duplicated points (ties go to the lowest index); the forward
+      on the card -- B=16, N=M=300; B=2, N=M=2048; N != M (300 x 77); B=40
+      (more blocks than one wave); a cloud of duplicated points (ties go to
+      the lowest index; points that no partner chose) and one point chosen
+      by every partner; the backward run twice for equal bits, and timed
+      with 1 to 32 threads a point beside the wrapper's choice; the forward
       timed beside the earlier route (two one-direction launches and five
       PyTorch launches), beside an empty kernel's launch, and in clusters
       of 1 to 8 blocks beside the clusters of each size the card runs at once;
@@ -16,7 +19,7 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       versions, and timed, at every BatchNorm shape of the generator on
       both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS);
   (c) the MS-CMRSeg triple-adversary train step (generator + D1 + D2 + D4,
-      bs 16, 224^2, float32, both kernels on): three steps on synthetic
+      bs 16, 224^2, float32, both kernels on): two steps on synthetic
       batches, every metric finite, every kernel launched, the BatchNorm
       inputs of the shapes phase (b) checked, one step against
       the plain implementations from the same weights, median step time and
@@ -40,7 +43,24 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       (shapes, one-hot masks, clouds on candidates of the warped masks),
       one preprocess + step against the plain implementations from the same
       weights and generator seeds, preprocess and step times, the
-      preprocess time with the point head off (no clouds), peak memory.
+      preprocess time with the point head off (no clouds), peak memory;
+  (g) the training run at full width, through the command-line entry point
+      a user calls: an MM-WHS dataset of 32 + 32 training and 16 + 16
+      validation slices (256^2 x 3 float images, 5-class masks of filled
+      ellipses, 300-point vertex files, the four datalists) is fabricated
+      from a seed into a temporary directory that the phase removes, and
+      ``pointcloududa_torch.cli.train_mmwhs.main`` trains on it for 2 epochs
+      of 4 steps (bs 16, nf 32, light augmentation, softmax, D2 + D4, the
+      target cloud's diagnostic every 2nd step, a full snapshot per epoch),
+      each epoch with its three validations: every logged scalar finite,
+      the checkpoint files present under the reference's names and loadable,
+      every kernel's launch count equal to what steps, cadence and validation
+      batches give; seconds per epoch and ms per training iteration beside
+      phase (f)'s preprocess + step. Then, with cuDNN deterministic (at its
+      defaults two runs from one seed part ways within an epoch), the same
+      2 epochs again, a second call that resumes from the snapshot at epoch
+      3, and its scalars held against an uninterrupted 3-epoch run in other
+      directories.
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
@@ -58,16 +78,24 @@ float32 on both sides of every comparison.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
-STEPS = 3
+STEPS = 2  # the second is the steady one that is timed
 MMWHS_STEPS = 4
+# the training run of phase (g): -bs, -ns, -vert_t_every and the slices per split
+RUN_BS, RUN_NS, RUN_VERT_T_EVERY = 16, 64, 2
+RUN_SLICES = {"mr_train": 32, "ct_train": 32, "mr_val": 16, "ct_val": 16}
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and
 # float32 FLOP/s outside the tensor cores; the kernels' bounds are reckoned
 # against them
@@ -157,7 +185,8 @@ def phase_chamfer(torch, dev, rec, card):
 
     rng = np.random.default_rng(0)
     nn_err = fwd_err = bwd_err = 0.0
-    for b, n, m in ((16, 300, 300), (2, 2048, 2048), (3, 300, 77)):
+    # B=40: more blocks than one wave of the backward's grid
+    for b, n, m in ((16, 300, 300), (2, 2048, 2048), (3, 300, 77), (40, 300, 300)):
         x = torch.tensor(rng.uniform(size=(b, n, 3)), dtype=torch.float32, device=dev)
         y = torch.tensor(rng.uniform(size=(b, m, 3)), dtype=torch.float32, device=dev)
         (m1, i1), (m2, i2) = ck.nn_directional(x, y), ck.nn_directional(y, x)
@@ -184,6 +213,8 @@ def phase_chamfer(torch, dev, rec, card):
         err_grad = max(_max_err(dx, ex), _max_err(dy, ey))
         _require(err_grad <= 1e-6, f"chamfer backward differs by {err_grad} at B={b} N={n} M={m}")
         bwd_err = max(bwd_err, err_grad)
+        _require(torch.equal(ck.side_grad(x, y, i1, i2, g), dx) and torch.equal(ck.side_grad(y, x, i2, i1, g), dy),
+                 "chamfer backward not bit-reproducible")
         # the autograd path runs the fused forward and the backward kernel and returns the same gradient
         xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
         before = ck.forward_fused.launches, ck.nn_directional.launches
@@ -201,6 +232,8 @@ def phase_chamfer(torch, dev, rec, card):
             )
             r = rec["chamfer_nn_forward"]
             fused_ms, earlier_ms = graph_ms(lambda: ck.forward_fused(x, y)), graph_ms(lambda: _earlier_forward(torch, ck, x, y))
+            print(f"  chamfer_backward B={b} N=M={n}: kernel {graph_ms(lambda: ck.side_grad(x, y, i1, i2, g)):.4f} ms with "
+                  f"{ck.backward_lanes(b, n, dev)} threads a point, plain {graph_ms(lambda: ck.side_grad_plain(x, y, i1, i2, g)):.4f} ms, on {card}")
             print(f"  chamfer_nn_forward B={b} N=M={n}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}; the whole forward there: one launch {fused_ms:.4f} ms, "
                   f"earlier route {earlier_ms:.4f} ms, on {card}")
@@ -213,7 +246,21 @@ def phase_chamfer(torch, dev, rec, card):
     _, f1, f2 = ck.forward_fused(dup, dup)
     want = (torch.arange(200, device=dev) % 100).to(torch.int32).expand(2, -1)
     _require(all(torch.equal(got, want) for got in (idx, idx_p, f1, f2)), "duplicate points: ties not lowest-index")
-    print("  chamfer duplicated points: argmins are the lowest index (both kernels and plain)")
+    # the backward there: points 0..99 are each chosen by two partners, points 100..199 by none (their sum is 0)
+    g = torch.tensor(1.0, device=dev)
+    err_dup = _max_err(ck.side_grad(dup, dup, f1, f2, g), ck.side_grad_plain(dup, dup, f1, f2, g))
+    # one point chosen by every partner: a's point 0 sits among c's points, the rest of a far away
+    lone = torch.tensor(rng.uniform(size=(2, 300, 3)), dtype=torch.float32, device=dev) + 10.0
+    lone[:, 0] = 0.5
+    crowd = torch.tensor(rng.uniform(size=(2, 77, 3)), dtype=torch.float32, device=dev)
+    _, l1, l2 = ck.forward_fused(lone, crowd)
+    _require(not bool(l2.any()), "every partner must choose point 0")
+    err_lone = max(_max_err(ck.side_grad(lone, crowd, l1, l2, g), ck.side_grad_plain(lone, crowd, l1, l2, g)),
+                   _max_err(ck.side_grad(crowd, lone, l2, l1, g), ck.side_grad_plain(crowd, lone, l2, l1, g)))
+    _require(max(err_dup, err_lone) <= 1e-6, f"chamfer backward differs by {err_dup} (duplicated points), {err_lone} (one point chosen by all)")
+    bwd_err = max(bwd_err, err_dup, err_lone)
+    print(f"  chamfer duplicated points: argmins are the lowest index (both kernels and plain); backward max|dgrad| {err_dup:.3g}; "
+          f"one point chosen by all 77 partners: max|dgrad| {err_lone:.3g}")
 
     x = torch.tensor(rng.uniform(size=(16, 300, 3)), dtype=torch.float32, device=dev)
     y = torch.tensor(rng.uniform(size=(16, 300, 3)), dtype=torch.float32, device=dev)
@@ -241,6 +288,10 @@ def phase_chamfer(torch, dev, rec, card):
         ms=graph_ms(lambda: ck.side_grad(x, y, i1, i2, g)),
         plain_ms=graph_ms(lambda: ck.side_grad_plain(x, y, i1, i2, g)),
         library_ms=None,
+        launch_floor_ms=floor_ms,
+        lanes=ck.backward_lanes(b, n, dev),
+        # the same launch with 1, 2, 4, 8, 16, 32 threads a point: the wrapper's rule rests on this row
+        by_lanes_ms=[graph_ms(lambda: ck._launch_side_grad(x, y, i1, i2, g, lanes=lanes)) for lanes in (1, 2, 4, 8, 16, 32)],
         **_bound(b * (n + m) * 12 + b * (n + m) * 4 + 4 + b * n * 12, b * (n + m) * 12),
     )
     # the same launch by cluster size: the wrapper's choice rests on where this row steps up (a second wave)
@@ -255,8 +306,10 @@ def phase_chamfer(torch, dev, rec, card):
           f"{r['one_direction_ms']:.4f} ms and five PyTorch launches) {r['earlier_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
           f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (an empty launch costs {floor_ms:.5f} ms), on {card}")
     r = rec["chamfer_backward"]
-    print(f"  chamfer_backward B=16 N=M=300: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-          f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (a launch costs more than that)")
+    print(f"  chamfer_backward B=16 N=M=300 with 1, 2, 4, 8, 16, 32 threads a point: "
+          + ", ".join(f"{t:.4f}" for t in r["by_lanes_ms"]) + f" ms (the wrapper takes {r['lanes']}), on {card}")
+    print(f"  chamfer_backward B=16 N=M=300: kernel {r['ms']:.4f} ms with {r['lanes']} threads a point, plain {r['plain_ms']:.4f} ms, "
+          f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (an empty launch costs {floor_ms:.5f} ms), repeat runs bit-equal, on {card}")
 
 
 # every BatchNorm input of the generator at bs 16, by path: 224^2 for MS-CMRSeg,
@@ -425,7 +478,7 @@ def phase_train_step(torch, dev, rec, card):
     print(f"  launches in {STEPS} steps: {counts}")
     # the first step pays cuDNN's algorithm choice and the allocator's growth
     print(f"  train step (bs 16, 224^2, f32, D1+D2+D4, both kernels): median {statistics.median(times[1:]):.2f} ms "
-          f"over steps 1-{STEPS - 1} (all: {', '.join(f'{t:.2f}' for t in times)}), "
+          f"after the first step (all: {', '.join(f'{t:.2f}' for t in times)}), "
           f"peak memory {peak_gib:.2f} GiB, on {card}")
     return cfg
 
@@ -732,6 +785,177 @@ def phase_mmwhs(torch, dev, rec, card):
         worst = max(worst, abs(got_v - want_v))
     print(f"  one preprocess + step, kernels vs plain from identical weights and seeds: clouds equal bit for bit, "
           f"{len(results['plain'][1])} metrics agree (max |diff| {worst:.3g}; rtol {STEP_RTOL}, atol {STEP_ATOL}; cuDNN deterministic)")
+    return statistics.median(pre_ms[1:]), statistics.median(step_ms[1:])
+
+
+def _fabricate_mmwhs(root: str, seed: int) -> None:
+    """An MM-WHS dataset in the directory contract of ``data/mmwhs.py``:
+    float32 256 x 256 x 3 slices (noise around the structures, so that there
+    is something to segment), uint8 masks of four filled ellipses, and (300,
+    3) vertex files on the 0..255 scale for the streams that load them (the
+    validation streams and ``ct_train``, which is also the third validation
+    set), and the four datalists."""
+    from pointcloududa_torch.data.manifest import write_ids
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks
+
+    rng = np.random.default_rng(seed)
+    for j, (split, n) in enumerate(RUN_SLICES.items()):
+        base = os.path.join(root, "PnpAda_release_data", split)
+        for sub in ("img", "mask", "vertices"):
+            os.makedirs(os.path.join(base, sub))
+        masks = synthetic_blob_masks(n, 256, seed=seed + 1 + j)
+        ids = [f"{split}_slice{i}.tfrecords" for i in range(n)]
+        for _id, mask in zip(ids, masks):
+            img = rng.normal(size=(256, 256, 3)).astype(np.float32) * 0.5 + mask[..., None].astype(np.float32) * 0.5
+            np.save(os.path.join(base, "img", f"{_id}.npy"), img)
+            np.save(os.path.join(base, "mask", f"{_id}.npy"), mask[..., None])
+            if split != "mr_train":
+                np.save(os.path.join(base, "vertices", f"{_id}.npy"), (rng.uniform(size=(300, 3)) * 255.0).astype(np.float32))
+        write_ids(os.path.join(root, f"{split}_list.csv"), ids)
+
+
+def _read_scalars(logdir: str) -> dict:
+    """{epoch: {scalar: value}} of the ``metrics.jsonl`` files under ``logdir``."""
+    recs: dict = {}
+    for folder, _, files in os.walk(logdir):
+        if "metrics.jsonl" in files:
+            with open(os.path.join(folder, "metrics.jsonl")) as f:
+                for line in f:
+                    r = json.loads(line)
+                    recs.setdefault(r["step"], {}).update({k: v for k, v in r.items() if k not in ("step", "time")})
+    return recs
+
+
+def phase_training_run(torch, dev, rec, card, pre_step_ms):
+    """(g) the training run through ``cli.train_mmwhs.main``. The first run
+    (timed, counted, its files checked) has cuDNN at its defaults, as phase
+    (f) has. The resume comparison runs with cuDNN deterministic: at its
+    defaults two runs from one seed part ways in the first epoch (atomics in
+    cuDNN's backward, amplified by twelve adversarial steps), so a resumed
+    run could not be told from a faulty one."""
+    from pointcloududa_torch.cli import train_mmwhs
+    from pointcloududa_torch.train import checkpoint, loop
+
+    steps = -(-RUN_NS // RUN_BS)
+    cadence_steps = -(-steps // RUN_VERT_T_EVERY)
+    val_batches = sum(-(-RUN_SLICES[s] // RUN_BS) for s in ("mr_val", "ct_val", "ct_train"))
+    tmp = tempfile.mkdtemp(prefix="pcuda_smoke_")
+    train_s, valid_s, waits = [], [], []
+    originals = loop.UDATrainer.train_epoch, loop.UDATrainer.validate, loop.DevicePrefetcher
+
+    class TimedPrefetcher(loop.DevicePrefetcher):
+        """Notes how long the training thread waited for each batch: what the loader does not hide."""
+
+        def __call__(self, it):
+            inner, epoch = super().__call__(it), []
+            waits.append(epoch)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(inner)
+                except StopIteration:
+                    return
+                epoch.append(time.perf_counter() - t0)
+                yield item
+
+    def timed(fn, into):
+        def wrapper(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self)  # ends in the epoch's one metric fetch, which waits for the device
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    def run(tag, epochs):
+        argv = ["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-e", str(epochs), "-nf", "32", "-aug", "light", "-softmax", "-d2",
+                "-d4", "-vert_t_every", str(RUN_VERT_T_EVERY), "-skip_final_eval", "-data_dir", os.path.join(tmp, "data"),
+                "-workdir", os.path.join(tmp, tag, "weights"), "-logdir", os.path.join(tmp, tag, "runs"),
+                "-resume", os.path.join(tmp, tag, "snap")]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_mmwhs.main(argv)  # no device given: the card
+        for line in out.getvalue().splitlines():
+            print(f"    | {line}")
+        return out.getvalue()
+
+    try:
+        t0 = time.perf_counter()
+        _fabricate_mmwhs(os.path.join(tmp, "data"), seed=5)
+        print(f"  fabricated {sum(RUN_SLICES.values())} MM-WHS slices in {time.perf_counter() - t0:.1f} s")
+        loop.UDATrainer.train_epoch = timed(originals[0], train_s)
+        loop.UDATrainer.validate = timed(originals[1], valid_s)
+        loop.DevicePrefetcher = TimedPrefetcher
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        _reset_launches()
+        text = run("a", 2)
+        counts = _launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        want = {
+            "fps": 2 * (steps + cadence_steps),
+            "chamfer_forward": 2 * (steps + cadence_steps + val_batches),
+            "chamfer_nn_forward": 0,
+            "chamfer_backward": 2 * steps,
+            "bn_stats_forward": 2 * steps * 32,
+            "bn_stats_backward": 2 * steps * 32,
+        }
+        _require(counts == want, f"launches in the training run {counts}, derived from steps, cadence and validation batches {want}")
+        _record_launches(rec, "mmwhs_training_run", counts, set(counts) - {"chamfer_nn_forward"})
+        print(f"  launches in 2 epochs of {steps} steps ({cadence_steps} with the target cloud) and {val_batches} validation batches: "
+              f"{counts}, as derived")
+        _require("[1/2]" in text and "[2/2]" in text and "continuing at epoch" not in text, "the first run must train epochs 1 and 2 from scratch")
+        scalars = _read_scalars(os.path.join(tmp, "a", "runs"))
+        _require(sorted(scalars) == [1, 2], f"epochs logged: {sorted(scalars)}")
+        for epoch, values in scalars.items():
+            bad = [k for k, v in values.items() if not np.isfinite(v)]
+            _require(not bad and len(values) >= 20, f"epoch {epoch}: non-finite or missing scalars {bad} of {len(values)}")
+        apdx = text.splitlines()[0]
+        weights = os.path.join(tmp, "a", "weights")
+        files = sorted(os.listdir(weights))
+        for name in (f"unet_model_checkpoint_{apdx}", f"entropy_dis_{apdx}", f"point_dis_{apdx}"):
+            _require(name in files, f"{name} missing among {files}")
+            payload = checkpoint.restore_pytree(os.path.join(weights, name))
+            _require(payload["epoch"] == 2 and {"model", "optimizer"} <= set(payload["state"]["net"]), f"{name}: unexpected layout")
+        best = [f for f in files if f.startswith(f"best_unet_model_checkpoint_{apdx}.Scr")]
+        _require(len(best) == 1 and "model" in checkpoint.restore_pytree(os.path.join(weights, best[0]))["state"]["net"],
+                 f"the renamed best checkpoint is missing among {files}")
+        snap = checkpoint.restore_pytree(os.path.join(tmp, "a", "snap"))
+        _require(snap["epoch"] == 2 and set(snap["nets"]) == {"gen", "d2", "d4"} and snap["step"] == 2 * steps, "snapshot: unexpected content")
+        print(f"  {len(scalars[2])} scalars per epoch, all finite; checkpoints {files} and the snapshot load")
+
+        # resume: 2 epochs, a second call that continues at epoch 3, and 3 epochs without a break elsewhere
+        torch.backends.cudnn.deterministic = True
+        run("c", 2)
+        text = run("c", 3)  # the same directories: resumes from the snapshot
+        _require("continuing at epoch 3" in text and "[3/3]" in text and "[1/3]" not in text, "the second call must resume at epoch 3")
+        run("b", 3)
+        got, ref = _read_scalars(os.path.join(tmp, "c", "runs"))[3], _read_scalars(os.path.join(tmp, "b", "runs"))[3]
+        _require(set(got) == set(ref), "the resumed and the uninterrupted epoch 3 log different scalars")
+        worst, equal = 0.0, True
+        for key, v in ref.items():
+            _require(abs(got[key] - v) <= STEP_ATOL + STEP_RTOL * abs(v), f"epoch 3 {key}: resumed {got[key]} vs uninterrupted {v}")
+            worst, equal = max(worst, abs(got[key] - v)), equal and got[key] == v
+        print(f"  resumed epoch 3 vs an uninterrupted 3-epoch run: {len(ref)} scalars agree (max |diff| {worst:.3g}; "
+              f"{'bit-equal' if equal else 'not bit-equal'}; rtol {STEP_RTOL}, atol {STEP_ATOL}; cuDNN deterministic)")
+    finally:
+        loop.UDATrainer.train_epoch, loop.UDATrainer.validate, loop.DevicePrefetcher = originals
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # epochs in the order they ran: a 1-2 (cuDNN at its defaults), then deterministic: c 1-2, c 3, b 1-3
+    per_it = [t / steps * 1e3 for t in train_s]
+    print(f"  first run: epoch 1 {train_s[0] + valid_s[0]:.2f} s (training {train_s[0]:.2f} + validation {valid_s[0]:.2f}), "
+          f"epoch 2 {train_s[1] + valid_s[1]:.2f} s ({train_s[1]:.2f} + {valid_s[1]:.2f}); peak memory {peak_gib:.2f} GiB, on {card}")
+    print(f"  training iteration in the loop (decode, prefetch, preprocess, step, the epoch's metric fetch; {steps} an epoch): "
+          f"{per_it[1]:.2f} ms in epoch 2 of the first run (epoch 1: {per_it[0]:.2f}), of which the training thread waited for "
+          f"its batches {sum(waits[1]) / steps * 1e3:.2f} ms ({waits[1][0] * 1e3:.1f} ms for the epoch's first, which nothing hides, "
+          f"{sum(waits[1][1:]) * 1e3:.1f} ms for the other {steps - 1}); phase (f) preprocess + step: "
+          f"{pre_step_ms[0]:.2f} + {pre_step_ms[1]:.2f} = {sum(pre_step_ms):.2f} ms; with cuDNN deterministic, the epochs that are "
+          f"not a call's first: median {statistics.median(per_it[i] for i in (3, 6, 7)):.2f} ms (all six: "
+          f"{', '.join(f'{t:.1f}' for t in per_it[2:])}); the three validations of {val_batches} batches: median "
+          f"{statistics.median(valid_s) * 1e3:.1f} ms, on {card}")
 
 
 def main() -> int:
@@ -785,8 +1009,12 @@ def main() -> int:
     seconds["e"] = time.perf_counter() - t0
     print("(f) MM-WHS path: raw batch -> device preprocess -> train step")
     t0 = time.perf_counter()
-    phase_mmwhs(torch, dev, rec, smi)
+    pre_step_ms = phase_mmwhs(torch, dev, rec, smi)
     seconds["f"] = time.perf_counter() - t0
+    print("(g) the training run: fabricated MM-WHS dataset -> cli.train_mmwhs.main (train, validate, checkpoint, resume)")
+    t0 = time.perf_counter()
+    phase_training_run(torch, dev, rec, smi, pre_step_ms)
+    seconds["g"] = time.perf_counter() - t0
     print("host seconds by phase: " + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
 
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -59,9 +59,10 @@
 // indices, and lanes that share a query compare (distance, index): ties keep
 // the lowest index, as jnp.argmin and torch.min do.
 //
-// The backward scatter is built without atomics: each query point scans the
-// partner cloud's argmin list for the entries that point back at it and
-// sums their unit vectors in index order, so repeat runs give the same bits.
+// The backward scatter is built without atomics: the lanes of a point scan
+// the partner cloud's argmin list for the entries that point back at it, each
+// lane sums its share's unit vectors in index order and a shuffle tree adds
+// the lanes, so repeat runs give the same bits (see side_grad_kernel).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -294,60 +295,108 @@ __global__ void __launch_bounds__(kFusedThreads)
 // a (idx_ca):  da_i = g/(B n) * u_i - g/(B m) * sum_{k: idx_ca[k] == i} v_k,
 // u_i = (a_i - c_{idx_ac[i]}) / sqrt(|.|^2 + eps),
 // v_k = (c_k - a_i) / sqrt(|.|^2 + eps).
-__global__ void __launch_bounds__(kThreads)
+//
+// What bounds it: the launch and one thread's chain, as in the forward. With
+// one thread a point a batch of 16 x 300 points was 32 blocks on 132 SMs and
+// every thread walked all m partners behind a tile load. Here kLanes adjacent
+// threads (a power of two, 1..32, chosen by the wrapper so that every SM has
+// two blocks: 16 at 16 x 300 points, where 8 measured 0.0061 ms and 16 and 32
+// 0.0051 ms) share point i: lane s walks partners s, s + kLanes, ... of
+// the staged tile and sums the unit vectors of those that chose i, in
+// increasing k; a shuffle tree adds the lanes' three sums in a fixed order,
+// and lane 0 adds u_i and writes. No atomics and no order that depends on
+// timing, so a repeat run gives the same bits. The partner cloud and its
+// argmin list are staged in shared memory in tiles of kGradTile points (8 KB;
+// m = 300 is one tile), so any m is served; blocks share nothing.
+constexpr int kGradThreads = 256;
+constexpr int kGradTile = 512;  // partner points, and their argmins, staged per tile
+
+template <int kLanes>
+__global__ void __launch_bounds__(kGradThreads)
     side_grad_kernel(const float* __restrict__ a, const float* __restrict__ c,
                      const int* __restrict__ idx_ac, const int* __restrict__ idx_ca,
                      const float* __restrict__ g, float* __restrict__ da, int batch, int n,
                      int m) {
-  __shared__ float cs[kTile * 3];
-  __shared__ int ids[kTile];
+  __shared__ float cs[kGradTile * 3];
+  __shared__ int ids[kGradTile];
+  constexpr int points = kGradThreads / kLanes;  // points of a per block
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int sub = static_cast<int>(threadIdx.x) % kLanes;  // this thread's lane of its point
+  const int i = blockIdx.x * points + static_cast<int>(threadIdx.x) / kLanes;
+  const bool active = i < n;  // idle threads stay for the barriers and the shuffles
   const float* ab = a + static_cast<size_t>(b) * n * 3;
   const float* cb = c + static_cast<size_t>(b) * m * 3;
   const int* icb = idx_ca + static_cast<size_t>(b) * m;
   float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  float u0 = 0.f, u1 = 0.f, u2 = 0.f;
-  if (i < n) {
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f;  // a_i's own nearest partner, lane 0 only
+  if (active) {
     a0 = ab[3 * i];
     a1 = ab[3 * i + 1];
     a2 = ab[3 * i + 2];
-    const int j = idx_ac[static_cast<size_t>(b) * n + i];
-    const float d0 = __fsub_rn(a0, cb[3 * j]);
-    const float d1 = __fsub_rn(a1, cb[3 * j + 1]);
-    const float d2 = __fsub_rn(a2, cb[3 * j + 2]);
-    const float d = __fsqrt_rn(__fadd_rn(sq3(d0, d1, d2), kEps));
-    u0 = __fdiv_rn(d0, d);
-    u1 = __fdiv_rn(d1, d);
-    u2 = __fdiv_rn(d2, d);
+    if (sub == 0) {  // asked for early: the dependent load hides behind the walk
+      const int j = idx_ac[static_cast<size_t>(b) * n + i];
+      p0 = cb[3 * j];
+      p1 = cb[3 * j + 1];
+      p2 = cb[3 * j + 2];
+    }
   }
   float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int t0 = 0; t0 < m; t0 += kTile) {
-    const int cnt = min(kTile, m - t0);
+  for (int t0 = 0; t0 < m; t0 += kGradTile) {
+    const int cnt = min(kGradTile, m - t0);
+    __syncthreads();  // the previous tile is fully consumed
+    for (int k = threadIdx.x; k < cnt * 3; k += kGradThreads) cs[k] = cb[3 * t0 + k];
+    for (int k = threadIdx.x; k < cnt; k += kGradThreads) ids[k] = icb[t0 + k];
     __syncthreads();
-    for (int k = threadIdx.x; k < cnt * 3; k += kThreads) cs[k] = cb[3 * t0 + k];
-    for (int k = threadIdx.x; k < cnt; k += kThreads) ids[k] = icb[t0 + k];
-    __syncthreads();
-    for (int k = 0; k < cnt; ++k) {
-      if (ids[k] == i) {
-        const float d0 = __fsub_rn(cs[3 * k], a0);
-        const float d1 = __fsub_rn(cs[3 * k + 1], a1);
-        const float d2 = __fsub_rn(cs[3 * k + 2], a2);
-        const float d = __fsqrt_rn(__fadd_rn(sq3(d0, d1, d2), kEps));
-        s0 = __fadd_rn(s0, __fdiv_rn(d0, d));
-        s1 = __fadd_rn(s1, __fdiv_rn(d1, d));
-        s2 = __fadd_rn(s2, __fdiv_rn(d2, d));
+    if (active) {
+#pragma unroll 4
+      for (int k = sub; k < cnt; k += kLanes) {  // increasing k: a fixed order of summation
+        if (ids[k] == i) {
+          const float d0 = __fsub_rn(cs[3 * k], a0);
+          const float d1 = __fsub_rn(cs[3 * k + 1], a1);
+          const float d2 = __fsub_rn(cs[3 * k + 2], a2);
+          const float d = __fsqrt_rn(__fadd_rn(sq3(d0, d1, d2), kEps));
+          s0 = __fadd_rn(s0, __fdiv_rn(d0, d));
+          s1 = __fadd_rn(s1, __fdiv_rn(d1, d));
+          s2 = __fadd_rn(s2, __fdiv_rn(d2, d));
+        }
       }
     }
   }
-  if (i < n) {
+  // the lanes of a point: a tree in a fixed order, the total in lane 0
+#pragma unroll
+  for (int off = kLanes >> 1; off > 0; off >>= 1) {
+    s0 = __fadd_rn(s0, __shfl_down_sync(0xffffffffu, s0, off, kLanes));
+    s1 = __fadd_rn(s1, __shfl_down_sync(0xffffffffu, s1, off, kLanes));
+    s2 = __fadd_rn(s2, __shfl_down_sync(0xffffffffu, s2, off, kLanes));
+  }
+  if (active && sub == 0) {
+    const float d0 = __fsub_rn(a0, p0);
+    const float d1 = __fsub_rn(a1, p1);
+    const float d2 = __fsub_rn(a2, p2);
+    const float d = __fsqrt_rn(__fadd_rn(sq3(d0, d1, d2), kEps));
     const float gv = g[0];
     const float g_self = __fdiv_rn(gv, static_cast<float>(batch) * static_cast<float>(n));
     const float g_other = __fdiv_rn(gv, static_cast<float>(batch) * static_cast<float>(m));
     float* out = da + (static_cast<size_t>(b) * n + i) * 3;
-    out[0] = __fsub_rn(__fmul_rn(g_self, u0), __fmul_rn(g_other, s0));
-    out[1] = __fsub_rn(__fmul_rn(g_self, u1), __fmul_rn(g_other, s1));
-    out[2] = __fsub_rn(__fmul_rn(g_self, u2), __fmul_rn(g_other, s2));
+    out[0] = __fsub_rn(__fmul_rn(g_self, __fdiv_rn(d0, d)), __fmul_rn(g_other, s0));
+    out[1] = __fsub_rn(__fmul_rn(g_self, __fdiv_rn(d1, d)), __fmul_rn(g_other, s1));
+    out[2] = __fsub_rn(__fmul_rn(g_self, __fdiv_rn(d2, d)), __fmul_rn(g_other, s2));
+  }
+}
+
+using GradKernel = void (*)(const float*, const float*, const int*, const int*, const float*,
+                            float*, int, int, int);
+
+// nullptr for a lane count that is not a power of two in 1..32.
+GradKernel grad_kernel(int lanes) {
+  switch (lanes) {
+    case 1: return side_grad_kernel<1>;
+    case 2: return side_grad_kernel<2>;
+    case 4: return side_grad_kernel<4>;
+    case 8: return side_grad_kernel<8>;
+    case 16: return side_grad_kernel<16>;
+    case 32: return side_grad_kernel<32>;
+    default: return nullptr;
   }
 }
 
@@ -413,12 +462,16 @@ int pcuda_chamfer_forward(const float* x, const float* y, int* idx1, int* idx2, 
 }
 
 // a (batch, n, 3), c (batch, m, 3), idx_ac (batch, n), idx_ca (batch, m),
-// g: one f32 on the device -> da (batch, n, 3).
+// g: one f32 on the device -> da (batch, n, 3); `lanes` threads (a power of
+// two, 1..32) share a point of a.
 int pcuda_chamfer_side_grad(const float* a, const float* c, const int* idx_ac,
                             const int* idx_ca, const float* g, float* da, int batch, int n,
-                            int m, cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  side_grad_kernel<<<grid, kThreads, 0, stream>>>(a, c, idx_ac, idx_ca, g, da, batch, n, m);
+                            int m, int lanes, cudaStream_t stream) {
+  const GradKernel kernel = grad_kernel(lanes);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int points = kGradThreads / lanes;
+  const dim3 grid((n + points - 1) / points, batch);
+  kernel<<<grid, kGradThreads, 0, stream>>>(a, c, idx_ac, idx_ca, g, da, batch, n, m);
   return static_cast<int>(cudaGetLastError());
 }
 

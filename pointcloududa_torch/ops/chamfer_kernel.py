@@ -8,7 +8,7 @@ cloud, both directions, and per item the mean of ``sqrt(min + 1e-5)`` in each
 direction; the loss is one reduction over those (B, 2) means. The backward
 needs only the argmin indices (:func:`side_grad`): ``d|x_i - y_a(i)| / dx_i``
 is the unit vector of the pair, and the scatter onto the partners is summed
-without atomics. :func:`nn_directional` is the one-direction search on its
+without atomics, by several threads per point. :func:`nn_directional` is the one-direction search on its
 own (the counterpart of ``_nn_directional_tiled``); the loss does not use it.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises, and counts the
@@ -139,27 +139,54 @@ def side_grad_plain(a, c, idx_ac, idx_ca, g):
     return (g / (b * n)) * u - (g / (b * m)) * scat
 
 
-def side_grad(a, c, idx_ac, idx_ca, g):
-    """See :func:`side_grad_plain`; ``g`` is the loss's upstream gradient
-    as a one-element tensor on ``a``'s device (never read on the host)."""
-    if a.device.type == "cpu":
-        return side_grad_plain(a, c, idx_ac, idx_ca, g)
+GRAD_THREADS = 256  # threads of a backward block (csrc/chamfer.cu:kGradThreads)
+
+
+def backward_lanes(b: int, n: int, device: torch.device) -> int:
+    """Threads that share one point in the backward: the smallest power of
+    two (at most 32) with which ``b * n`` points give every SM of ``device``
+    two blocks of ``GRAD_THREADS`` threads; 16 x 300 points on 132 SMs take
+    16. Measured, not derived: the launch's time falls with every doubling up
+    to there and stays from there on (``chip_smoke.py`` phase (a) prints the
+    time with 1 to 32 threads a point beside this choice)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    lanes = 1
+    while lanes < 32 and b * n * lanes < 2 * sms * GRAD_THREADS:
+        lanes *= 2
+    return lanes
+
+
+def _launch_side_grad(a, c, idx_ac, idx_ca, g, lanes: int | None = None):
+    """One launch of the backward for cloud ``a``; ``lanes`` (a power of two,
+    1..32) defaults to :func:`backward_lanes`. The kernel sums in another
+    order for another ``lanes``, so results agree in all but the last bits
+    across lane counts and bit for bit for one."""
     _check_clouds(a, c)
     b, n, _ = a.shape
     m = c.shape[1]
     for t, shape in ((idx_ac, (b, n)), (idx_ca, (b, m))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape or not t.is_contiguous() or t.device != a.device:
             raise ValueError(f"expected contiguous int32 {shape} indices on {a.device}")
+    if lanes is None:
+        lanes = backward_lanes(b, n, a.device)
     g = g.to(device=a.device, dtype=torch.float32).reshape(1).contiguous()
     da = torch.empty_like(a)
     with torch.cuda.device(a.device):
         status = native.load().pcuda_chamfer_side_grad(
             a.data_ptr(), c.data_ptr(), idx_ac.data_ptr(), idx_ca.data_ptr(), g.data_ptr(),
-            da.data_ptr(), b, n, m, _stream(a),
+            da.data_ptr(), b, n, m, lanes, _stream(a),
         )
     native.check(status, "pcuda_chamfer_side_grad")
     side_grad.launches += 1
     return da
+
+
+def side_grad(a, c, idx_ac, idx_ca, g):
+    """See :func:`side_grad_plain`; ``g`` is the loss's upstream gradient
+    as a one-element tensor on ``a``'s device (never read on the host)."""
+    if a.device.type == "cpu":
+        return side_grad_plain(a, c, idx_ac, idx_ca, g)
+    return _launch_side_grad(a, c, idx_ac, idx_ca, g)
 
 
 side_grad.launches = 0

@@ -1,28 +1,49 @@
-"""The device preprocess of the training loop (counterpart of
-``pointcloududa_tpu/train/loop.py:make_device_preprocess``): raw host batch
--> model batch, on the accelerator.
+"""The training loop: one engine for both workloads (counterpart of
+``pointcloududa_tpu/train/loop.py``).
 
-Pipeline shape per step: the host ships raw arrays (uint8 slices for
-MS-CMRSeg, volume-normalised floats for MM-WHS, integer label masks, 0..255
-vertex clouds); the *device preprocess* augments, regenerates the point
-clouds of warped MM-WHS masks, normalises, centre-crops and one-hots; the
-5-phase UDA step (``train/step.py``) consumes the result. The trainer around
-the two (``UDATrainer`` in the JAX package) is still to be ported.
+The reference duplicates ~80% of its logic between ``train_mscmrseg.py`` and
+``train_mmwhs.py`` (SURVEY.md §1); here a single :class:`UDATrainer` is
+parameterised by :class:`UDAConfig` and the dataset adapters.
+
+Pipeline shape per step (vs the reference's synchronous host loop with
+per-step H2D copies, ``train_mscmrseg.py:183-330``):
+
+  host workers decode raw arrays (uint8 slices for MS-CMRSeg,
+  volume-normalised floats for MM-WHS, integer label masks, 0..255 vertex
+  clouds) -> a prefetch thread copies them to the card one batch ahead ->
+  the *device preprocess* (:func:`make_device_preprocess`: augment,
+  regenerate the point clouds of warped MM-WHS masks, normalise, centre-crop,
+  one-hot) -> the 5-phase UDA step (``train/step.py``). The host never reads
+  a device result inside the epoch: metrics stay on the device and are
+  fetched once per epoch.
+
+Epoch cadence parity: validation over (source-val, target-val, target-train)
+every epoch (``train_mscmrseg.py:102-139``), checkpoint monitor =
+``val_lge_dice`` mode=max, generator lr x0.2 every ``decay_e`` epochs, and a
+wall-clock stop with the MM-WHS adaptive margin (``train_mmwhs.py:673-675``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
-from pointcloududa_torch.config import UDAConfig
+from pointcloududa_torch.config import UDAConfig, appendix
+from pointcloududa_torch.data.loader import BatchPadder, DevicePrefetcher, to_device
 from pointcloududa_torch.ops import augment as augment_lib
 from pointcloududa_torch.ops.pointcloud_device import (
     draw_starts,
     masks_to_point_clouds_from_starts,
 )
+from pointcloududa_torch.train import checkpoint as ckpt_lib
+from pointcloududa_torch.train.state import create_train_state, get_generator_lr, set_generator_lr
+from pointcloududa_torch.train.step import make_eval_step, make_train_step
 from pointcloududa_torch.utils.device import resolve_device
+from pointcloududa_torch.utils.logging import MetricWriter
+from pointcloududa_torch.utils.timer import trace_annotation
 
 
 def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, device=None, fps_impl: str = "auto"):
@@ -63,7 +84,8 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
     regen_verts = use_aug and cfg.point_head and cfg.workload == "mmwhs"
 
     def tensors(raw) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
+        # a tensor that a prefetcher already put on the device passes through untouched
+        return to_device(raw, device)
 
     def crop(x):
         h = x.shape[1]
@@ -138,3 +160,315 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
         return batch
 
     return process_train if train else process_eval
+
+
+def _fetch_means(history: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """Per-key means of a list of metric dictionaries of 0-d device tensors,
+    with one transfer to the host for the whole list. A key that only some
+    entries have (``ver_t_loss`` on cadence steps) is averaged over those."""
+    if not history:
+        return {}
+    names = [(i, k) for i, m in enumerate(history) for k in sorted(m)]
+    flat = torch.stack([history[i][k].detach().to(torch.float32).reshape(()) for i, k in names]).cpu().numpy()
+    by_key: Dict[str, list] = {}
+    for (_, k), v in zip(names, flat):
+        by_key.setdefault(k, []).append(v)
+    return {k: float(np.mean(v)) for k, v in by_key.items()}
+
+
+class UDATrainer:
+    """End-to-end UDA training with validation, checkpoints and logging.
+
+    ``train_iter``: object with ``.epoch()`` yielding raw host batches and
+    ``.steps_per_epoch``. ``val_iters``: mapping of
+    {"val": fn, "val_lge": fn, "test_lge": fn} each returning a fresh
+    iterator of raw eval batches. ``device=None`` is the current CUDA device
+    (raising without one); ``place`` copies a raw host batch to the device
+    and defaults to a copy of every array. One device only: ``mesh`` must be
+    ``None``.
+    """
+
+    def __init__(
+        self,
+        cfg: UDAConfig,
+        train_iter,
+        val_iters: Dict[str, Callable[[], Iterable]],
+        workdir: str = "weights",
+        logdir: str = "runs",
+        mesh=None,
+        device_augment: bool = True,
+        place: Optional[Callable] = None,
+        device=None,
+    ):
+        if mesh is not None:
+            raise NotImplementedError("data-parallel training (a device mesh) is not ported: ROADMAP Queue 1 item 12")
+        self.cfg = cfg
+        self.train_iter = train_iter
+        self.val_iters = val_iters
+        self.mesh = None
+        self.device = resolve_device(device)
+        # tail batches are wrap-padded to the stream's full batch size with a
+        # sample_mask; see data.loader.BatchPadder
+        self._pad_multiple = 1
+        self.appendix = appendix(cfg)
+        if cfg.debug_nans:
+            # NaN guard: what the reference has always on (train_mscmrseg.py:703)
+            torch.autograd.set_detect_anomaly(True)
+
+        self.state = create_train_state(cfg, seed=cfg.seed, device=self.device)
+        self.gen = self.state.models[0]
+        self.train_step = make_train_step(cfg, self.state.models, self.state.optimizers)
+        self.eval_step = make_eval_step(cfg, self.gen)
+        self.pre_train = make_device_preprocess(cfg, train=True, device_augment=device_augment, device=self.device)
+        self.pre_eval = make_device_preprocess(cfg, train=False, device_augment=False, device=self.device)
+        self.place = place if place is not None else (lambda b: to_device(b, self.device))
+        self._aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
+
+        self.writer = MetricWriter(logdir, comment=self.appendix)
+        mk = lambda name, best: ckpt_lib.ModelCheckpointCallback(  # noqa: E731
+            mode="max",
+            best_model_name=f"{workdir}/best_{name}_{self.appendix}",
+            model_name=f"{workdir}/{name}_{self.appendix}",
+            save_best=best,
+            save_last_model=True,
+            n_epochs=cfg.epochs,
+        )
+        self.ckpt_gen = mk("unet_model_checkpoint", best=True)
+        self.ckpt_d1 = mk("out_dis", best=False) if cfg.d1 else None
+        self.ckpt_d2 = mk("entropy_dis", best=False) if cfg.d2 else None
+        self.ckpt_d4 = mk("point_dis", best=False) if cfg.d4 else None
+
+        self.best = {"epoch": 0, "val_lge_dice": -1.0, "train": {}, "valid": {}}
+        self._lr = cfg.lr
+        self.early_stop = (
+            ckpt_lib.EarlyStoppingCallback(cfg.patience, mode="max") if cfg.patience > 0 else None
+        )
+
+    # ------------------------------------------------------------------ #
+    def train_epoch(self) -> Dict[str, float]:
+        metrics_acc = []
+        step = 0
+        # a background thread decodes + places the next batch while the
+        # device runs the current step (vs the reference's blocking host
+        # loop); tail batches are padded + masked to a single static shape
+        prefetch = DevicePrefetcher(place=self.place, depth=2, device=self.device)
+        padder = BatchPadder(self._pad_multiple)
+        every = self.cfg.vert_t_every
+        for raw in prefetch(map(padder, self.train_iter.epoch())):
+            with trace_annotation("uda_train_step"):
+                # cadence of the logged-only target chamfer (vert_t_every):
+                # off-cadence steps drop vert_t, and with it the target
+                # cloud's regeneration and the diagnostic's launch
+                with_vt = every <= 1 or step % every == 0
+                batch = self.pre_train(self._aug_gen, raw, with_vert_t=with_vt)
+                self.state, metrics = self.train_step(self.state, batch)
+            metrics_acc.append(metrics)  # 0-d tensors on the device: nothing is read here
+            step += 1
+        # key union: ver_t_loss is present only on cadence steps; its epoch
+        # mean averages the sampled steps
+        return _fetch_means(metrics_acc)
+
+    def _validate_one(self, make_iter) -> Dict[str, float]:
+        outs = []
+        padder = BatchPadder(self._pad_multiple)
+        for raw in make_iter():
+            batch = self.pre_eval(self.place(padder(raw)))
+            out = self.eval_step(batch)
+            outs.append({k: v for k, v in out.items() if k != "logits"})
+        return _fetch_means(outs)
+
+    def validate(self) -> Dict[str, float]:
+        r = {}
+        a = self._validate_one(self.val_iters["val"])
+        r["val_dice"], r["val_loss"], r["valid_vert_loss"] = a["dice"], a["loss"], a["vert_loss"]
+        b = self._validate_one(self.val_iters["val_lge"])
+        r["val_lge_dice"], r["val_lge_loss"] = b["dice"], b["loss"]
+        r["val_lge_vert_loss"] = b["vert_loss"]
+        c = self._validate_one(self.val_iters["test_lge"])
+        r["test_lge_dice"], r["test_lge_loss"] = c["dice"], c["loss"]
+        return r
+
+    def print_epoch_result(self, tr, vr, epoch: int) -> None:
+        cfg = self.cfg
+        n = cfg.epochs
+        line1 = (
+            f"[{epoch}/{n}] train_loss: {tr.get('seg_loss', 0):.5f} "
+            f"valid_loss: {vr['val_loss']:.5f} valid_lge_loss: {vr['val_lge_loss']:.5f} "
+            f"test_lge_loss: {vr['test_lge_loss']:.5f} "
+        )
+        if cfg.point_head:
+            line1 += f"vertex_s_loss: {tr.get('ver_s_loss', -1):.5f}, vertex_t_loss: {tr.get('ver_t_loss', -1):.5f} "
+        line2 = (
+            f"train_dice: {tr.get('seg_dice', 0):.5f} valid_dice: {vr['val_dice']:.5f} "
+            f"valid_lge_dice: {vr['val_lge_dice']:.5f} test_lge_dice: {vr['test_lge_dice']:.5f} "
+        )
+        for d in ("1", "2", "4"):
+            if tr.get(f"dis{d}_acc1") is not None:
+                line2 += f"d{d}_acc1: {tr[f'dis{d}_acc1']:.5f} d{d}_acc2: {tr[f'dis{d}_acc2']:.5f} "
+        print(line1)
+        print(line2)
+
+    # ------------------------------------------------------------------ #
+    _NETS = ("gen", "d1", "d2", "d4")
+
+    def save_full(self, path: str, epoch: int) -> None:
+        """Snapshot EVERYTHING needed to resume mid-run: all four networks
+        (weights + BN statistics + optimiser state), the step count, the
+        dropout generator's and the augmentation generator's state, the
+        epoch counter, lr, best-so-far, the monitors of the best-checkpoint
+        callback and of early stopping, and the samplers' ring cursors and
+        orders.
+
+        Goes beyond the reference's warm restart (model+optimizer only,
+        ``train_mmwhs.py:537-583``): a resumed run continues the exact
+        data order and decay schedule.
+        """
+        payload = {
+            "epoch": int(epoch),
+            "lr": float(self._lr),
+            "best_val_lge_dice": float(self.best["val_lge_dice"]),
+            "best_epoch": int(self.best["epoch"]),
+            "aug_rng": self._aug_gen.get_state(),
+            "dropout_rng": self.state.generator.get_state(),
+            "step": int(self.state.step),
+            "nets": {
+                name: ckpt_lib.net_state(module, opt)
+                for name, module, opt in zip(self._NETS, self.state.models, self.state.optimizers)
+                if module is not None
+            },
+            # monitor state of the best-checkpoint callback + early stopping,
+            # so a resumed run keeps the same best/patience decisions
+            "ckpt_best": float(self.ckpt_gen.best_result),
+            "ckpt_epoch": int(self.ckpt_gen.epoch),
+            "es_counter": int(self.early_stop.counter if self.early_stop else 0),
+            "es_best": float(self.early_stop.best_result if self.early_stop else -np.inf),
+        }
+        if hasattr(self.train_iter, "_src_sampler"):
+            for key, sampler in (("src_sampler", self.train_iter._src_sampler), ("tgt_sampler", self.train_iter._tgt_sampler)):
+                st = sampler.state()
+                payload[key] = {"cursor": int(st["cursor"]), "order": torch.from_numpy(np.asarray(st["order"], np.int64))}
+        ckpt_lib.save_pytree(path, payload)
+
+    def restore_full(self, path: str) -> int:
+        """Restore a :meth:`save_full` snapshot; returns the next epoch. The
+        generators' states restore only into generators of the same device
+        type as those that wrote them: a snapshot of a run on the card
+        resumes on a card, one of a CPU run on the CPU."""
+        payload = ckpt_lib.restore_pytree(path)
+        for name, module, opt in zip(self._NETS, self.state.models, self.state.optimizers):
+            if module is not None:
+                module.load_state_dict(payload["nets"][name]["model"])
+                opt.load_state_dict(payload["nets"][name]["optimizer"])
+        self.state.step = int(payload["step"])
+        self.state.generator.set_state(payload["dropout_rng"])
+        self._aug_gen.set_state(payload["aug_rng"])
+        self._lr = float(payload["lr"])
+        self.best["val_lge_dice"] = float(payload["best_val_lge_dice"])
+        self.best["epoch"] = int(payload["best_epoch"])
+        self.ckpt_gen.best_result = float(payload["ckpt_best"])
+        self.ckpt_gen.epoch = int(payload["ckpt_epoch"])
+        if self.early_stop is not None:
+            self.early_stop.counter = int(payload["es_counter"])
+            self.early_stop.best_result = float(payload["es_best"])
+        if "src_sampler" in payload and hasattr(self.train_iter, "_src_sampler"):
+            for key, sampler in (("src_sampler", self.train_iter._src_sampler), ("tgt_sampler", self.train_iter._tgt_sampler)):
+                sampler.restore({"cursor": payload[key]["cursor"], "order": payload[key]["order"].numpy()})
+        return int(payload["epoch"]) + 1
+
+    def initial_validation(self) -> Dict[str, float]:
+        """Warm-restart pre-train validation with the reference's print
+        format (``train_mscmrseg.py:511-524``, ``train_mmwhs.py:584-600``)."""
+        vr = self.validate()
+        print(
+            f"valid_loss: {vr['val_loss']:.5f} "
+            f"valid_lge_loss: {vr['val_lge_loss']:.5f} "
+            f"test_lge_loss: {vr['test_lge_loss']:.5f} "
+        )
+        print(
+            f"valid_dice: {vr['val_dice']:.5f} "
+            f"valid_lge_dice: {vr['val_lge_dice']:.5f} "
+            f"test_lge_dice: {vr['test_lge_dice']:.5f} "
+        )
+        return vr
+
+    def _net_trees(self):
+        """(callback, checkpoint tree) of the generator and each enabled discriminator."""
+        callbacks = (self.ckpt_gen, self.ckpt_d1, self.ckpt_d2, self.ckpt_d4)
+        for cb, module, opt in zip(callbacks, self.state.models, self.state.optimizers):
+            if cb is not None:
+                yield cb, {"net": ckpt_lib.net_state(module, opt), "config": None}
+
+    def fit(
+        self,
+        epochs: Optional[int] = None,
+        start_epoch: int = 1,
+        save_full_every: int = 0,
+        save_full_path: Optional[str] = None,
+    ) -> Dict:
+        """Run training. ``start_epoch`` > 1 continues a :meth:`restore_full`
+        snapshot (decay schedule, best-so-far and checkpoint cadence all pick
+        up where they left off); ``save_full_every``/``save_full_path``
+        enable periodic full snapshots for crash recovery. The wall-clock
+        budget counts from *this* process start (the reference has no mid-run
+        resume; its 24h budget is per submission)."""
+        cfg = self.cfg
+        n_epochs = epochs or cfg.epochs
+        budget = cfg.max_hours * 3600 - 10 * 60  # reference margin (:667)
+        start = time.perf_counter()
+        slowest_epoch = 0.0
+        for epoch in range(start_epoch, n_epochs + 1):
+            e0 = time.perf_counter()
+            tr = self.train_epoch()
+            vr = self.validate()
+            self.print_epoch_result(tr, vr, epoch)
+            self.writer.scalars(epoch, tr, prefix="train/")
+            self.writer.scalars(epoch, vr, prefix="valid/")
+            self.writer.scalars(epoch, {"lr": get_generator_lr(self.state)}, prefix="opt/")
+
+            if vr["val_lge_dice"] > self.best["val_lge_dice"]:
+                self.best = {
+                    "epoch": epoch,
+                    "val_lge_dice": vr["val_lge_dice"],
+                    "train": tr,
+                    "valid": vr,
+                }
+            out_of_time = (time.perf_counter() - start) > budget
+            stop_early = False
+            if self.early_stop is not None:
+                self.early_stop.step(vr["val_lge_dice"])
+                stop_early = self.early_stop.should_stop()
+            # a terminal epoch (budget or patience) triggers the final-epoch
+            # checkpoint behaviour (.Scr rename + last snapshot), like the
+            # reference's epoch = n_epochs - 1 trick (train_mscmrseg.py:573-574)
+            ckpt_epoch = n_epochs if (out_of_time or stop_early) else epoch
+            monitor = vr["val_lge_dice"]
+            for cb, tree in self._net_trees():
+                cb.step(monitor, tree, ckpt_epoch)
+            if out_of_time:
+                print("wall-clock budget reached; stopping")
+                break
+            if stop_early:
+                print(f"early stopping: no val_lge_dice improvement for {cfg.patience} epochs")
+                break
+            if cfg.offdecay and epoch % cfg.decay_e == 0:
+                self._lr *= 0.2
+                self.state = set_generator_lr(self.state, self._lr)
+            # full snapshot AFTER the decay so a resume continues the
+            # uninterrupted run's schedule exactly
+            if save_full_every and save_full_path and epoch % save_full_every == 0:
+                self.save_full(save_full_path, epoch)
+            # adaptive margin (train_mmwhs.py:673-675)
+            slowest_epoch = max(slowest_epoch, time.perf_counter() - e0)
+            budget = cfg.max_hours * 3600 - slowest_epoch - 25 * 60
+        print(
+            "Best model on epoch {}: train_dice {:.3f}, valid_dice {:.3f}, "
+            "lge_dice {:.3f}, test_lge_dice {:.3f}".format(
+                self.best["epoch"],
+                self.best["train"].get("seg_dice", 0.0),
+                self.best["valid"].get("val_dice", 0.0),
+                self.best["valid"].get("val_lge_dice", 0.0),
+                self.best["valid"].get("test_lge_dice", 0.0),
+            )
+        )
+        self.writer.close()
+        return self.best

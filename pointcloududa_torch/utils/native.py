@@ -40,7 +40,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "pcuda_chamfer_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_chamfer_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "pcuda_chamfer_side_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "pcuda_chamfer_side_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_bn_stats_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_bn_stats_backward": (_P, _P, _P, _P, _I, _I, _I, _P),
     "pcuda_fps": (_P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

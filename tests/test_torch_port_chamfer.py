@@ -143,3 +143,34 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(f1, idx) and torch.equal(f2, idx2)
     assert torch.equal(parts, ck.forward_fused_plain(x, y)[0])
     assert ck.nn_directional.launches == 0 and ck.side_grad.launches == 0 and ck.forward_fused.launches == 0
+
+
+def _grad_case(kind):
+    rng = np.random.default_rng(31)
+    if kind == "n_above_m":
+        return _clouds(32, 2, 57, 33)
+    if kind == "n_below_m":
+        return _clouds(33, 3, 20, 75)
+    if kind == "duplicated_points":  # half of the points are chosen twice, the other half never
+        base, _ = _clouds(34, 2, 40, 1)
+        dup = np.concatenate([base, base], axis=1)
+        return dup, dup.copy()
+    a = (rng.uniform(size=(2, 30, 3)) + 10.0).astype(np.float32)  # one point of a chosen by every point of c
+    a[:, 0] = 0.5
+    return a, rng.uniform(size=(2, 17, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["n_above_m", "n_below_m", "duplicated_points", "one_point_chosen_by_all"])
+def test_side_grad_plain_matches_the_jax_gradient(kind):
+    """``side_grad_plain``, which the card holds the backward kernel against,
+    is ``jax.grad`` of ``chamfer_loss_pallas`` (interpret mode) in both clouds,
+    at atol 1e-6 and with an upstream gradient other than 1."""
+    x, y = _grad_case(kind)
+    want_dx, want_dy = jax.grad(lambda a, b: 0.7 * chamfer_pallas.chamfer_loss_pallas(a, b), argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    xt, yt = torch.tensor(x), torch.tensor(y)
+    _, i1, i2 = ck.forward_fused_plain(xt, yt)
+    g = torch.tensor(0.7)
+    np.testing.assert_allclose(ck.side_grad_plain(xt, yt, i1, i2, g).numpy(), np.asarray(want_dx), atol=1e-6)
+    np.testing.assert_allclose(ck.side_grad_plain(yt, xt, i2, i1, g).numpy(), np.asarray(want_dy), atol=1e-6)
+    if kind == "one_point_chosen_by_all":
+        assert not i2.any() and float(np.abs(np.asarray(want_dx)[:, 0]).max()) > 10 * float(np.abs(np.asarray(want_dx)[:, 1:]).max())

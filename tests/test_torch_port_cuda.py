@@ -4,7 +4,8 @@ Marked ``cuda``: without a CUDA device every test skips (the kernels have no
 CPU mode). On the card: ``python -m pytest tests/test_torch_port_cuda.py -q``.
 This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances as in ``chip_smoke.py``: argmins equal, Chamfer minima and
-gradients atol 1e-6, BN statistics 1e-5 (+1e-5 relative, f32 sums in another
+gradients atol 1e-6 (the backward also bit-equal on a repeat, whatever its
+lane count), BN statistics 1e-5 (+1e-5 relative, f32 sums in another
 order), BN gradients 1e-6 relative; farthest-point sampling exact.
 """
 
@@ -287,3 +288,111 @@ def test_fps_refused_launch_raises_and_the_next_one_runs(dev):
     got = fps_kernel.fps(valid, coords, starts, k)
     torch.cuda.synchronize()
     assert torch.equal(got, fps_kernel.fps_plain(valid, coords, starts, k))
+
+
+def _backward_case(dev, kind):
+    """(a, c) clouds for the cases the several-lanes backward puts at risk."""
+    rng = np.random.default_rng(sum(map(ord, kind)))
+    if kind == "duplicated":  # points 0..99 are each chosen by two partners, points 100..199 by none
+        base = torch.tensor(rng.uniform(size=(2, 100, 3)), dtype=torch.float32, device=dev)
+        dup = torch.cat([base, base], dim=1).contiguous()
+        return dup, dup.clone()
+    if kind == "one_point_chosen_by_all":  # a's point 0 among c's points, the rest of a far away: 77 hits on one point
+        a = torch.tensor(rng.uniform(size=(2, 300, 3)), dtype=torch.float32, device=dev) + 10.0
+        a[:, 0] = 0.5
+        return a, torch.tensor(rng.uniform(size=(2, 77, 3)), dtype=torch.float32, device=dev)
+    b, n, m = {"path": (16, 300, 300), "long": (2, 2048, 2048), "n_above_m": (3, 300, 77), "n_below_m": (3, 77, 300),
+               "beyond_one_wave": (40, 300, 300), "n_below_a_warps_share": (1, 1, 5), "tiles": (2, 700, 1100)}[kind]
+    return tuple(_clouds(dev, b, n, m, seed=n + m))
+
+
+@pytest.mark.parametrize("kind", ["path", "long", "n_above_m", "n_below_m", "beyond_one_wave", "n_below_a_warps_share", "tiles",
+                                  "duplicated", "one_point_chosen_by_all"])
+def test_chamfer_backward_matches_plain(dev, kind):
+    """Both clouds' gradients against ``side_grad_plain`` at atol 1e-6 (the
+    same unit vectors, summed by strided lanes and a tree instead of in index
+    order), and the same bits on a repeat."""
+    a, c = _backward_case(dev, kind)
+    _, i_ac, i_ca = chamfer_kernel.forward_fused(a, c)
+    g = torch.full((), 0.7, device=dev)
+    before = chamfer_kernel.side_grad.launches
+    for x, y, ixy, iyx in ((a, c, i_ac, i_ca), (c, a, i_ca, i_ac)):
+        got = chamfer_kernel.side_grad(x, y, ixy, iyx, g)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, chamfer_kernel.side_grad_plain(x, y, ixy, iyx, g), rtol=0, atol=1e-6)
+        assert torch.equal(got, chamfer_kernel.side_grad(x, y, ixy, iyx, g))
+    assert chamfer_kernel.side_grad.launches == before + 4
+    if kind == "one_point_chosen_by_all":
+        assert not bool(i_ca.any())
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_chamfer_backward_with_every_lane_count(dev, lanes):
+    for kind in ("path", "n_above_m", "n_below_a_warps_share", "one_point_chosen_by_all"):
+        a, c = _backward_case(dev, kind)
+        _, i_ac, i_ca = chamfer_kernel.forward_fused(a, c)
+        g = torch.ones((), device=dev)
+        got = chamfer_kernel._launch_side_grad(a, c, i_ac, i_ca, g, lanes=lanes)
+        torch.testing.assert_close(got, chamfer_kernel.side_grad_plain(a, c, i_ac, i_ca, g), rtol=0, atol=1e-6)
+        assert torch.equal(got, chamfer_kernel._launch_side_grad(a, c, i_ac, i_ca, g, lanes=lanes))
+    assert chamfer_kernel.backward_lanes(16, 300, dev) in (8, 16, 32)
+
+
+def test_chamfer_backward_refused_launch_raises_and_the_next_one_runs(dev):
+    """A lane count that is not a power of two up to 32 is refused by the
+    entry point: the wrapper raises, counts nothing, and the error does not
+    linger; index lists of the wrong type or shape never reach the kernel."""
+    a, c = _backward_case(dev, "n_above_m")
+    _, i_ac, i_ca = chamfer_kernel.forward_fused(a, c)
+    g = torch.ones((), device=dev)
+    before = chamfer_kernel.side_grad.launches
+    for lanes in (3, 64, 0):
+        with pytest.raises(RuntimeError):
+            chamfer_kernel._launch_side_grad(a, c, i_ac, i_ca, g, lanes=lanes)
+    with pytest.raises(ValueError):
+        chamfer_kernel.side_grad(a, c, i_ac.long(), i_ca, g)
+    with pytest.raises(ValueError):
+        chamfer_kernel.side_grad(a, c, i_ca, i_ac, g)
+    assert chamfer_kernel.side_grad.launches == before
+    got = chamfer_kernel.side_grad(a, c, i_ac, i_ca, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, chamfer_kernel.side_grad_plain(a, c, i_ac, i_ca, g), rtol=0, atol=1e-6)
+
+
+def test_trainer_epoch_on_the_card_with_a_prefetcher(dev, tmp_path):
+    """Two steps of ``UDATrainer.train_epoch`` on the card (light augmentation,
+    D2 + D4, every kernel on): the raw batches are copied by the prefetcher's
+    thread on its own stream, the metrics are finite, and every kernel of the
+    path was launched."""
+    from pointcloududa_torch.config import mmwhs_default
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks
+    from pointcloududa_torch.ops import fps_kernel
+    from pointcloududa_torch.train.loop import UDATrainer
+
+    cfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="light", filters=8, crop_size=96, fc_inch=1, bs=4, vert_t_every=2,
+                        chamfer_impl="pallas", bn_stats_impl="pallas")
+    placed_in = []
+
+    class Batches:
+        steps_per_epoch = 2
+
+        def epoch(self):
+            rng = np.random.default_rng(0)
+            for s in range(2):
+                yield {"img_s": rng.normal(size=(4, 96, 96, 3)).astype(np.float32), "mask_s": synthetic_blob_masks(4, 96, seed=s),
+                       "img_t": rng.normal(size=(4, 96, 96, 3)).astype(np.float32), "mask_t": synthetic_blob_masks(4, 96, seed=9 + s)}
+
+    trainer = UDATrainer(cfg, Batches(), {}, workdir=str(tmp_path / "w"), logdir=str(tmp_path / "r"))
+    assert trainer.device.type == "cuda"
+    place = trainer.place
+    trainer.place = lambda b: placed_in.append(torch.cuda.current_stream().cuda_stream) or place(b)
+    counts = lambda: (chamfer_kernel.forward_fused.launches, chamfer_kernel.side_grad.launches,  # noqa: E731
+                      bn_kernel.stats_forward.launches, bn_kernel.stats_backward.launches, fps_kernel.fps.launches)
+    before = counts()
+    metrics = trainer.train_epoch()
+    torch.cuda.synchronize()
+    trainer.writer.close()
+    assert len(metrics) == 14 and all(np.isfinite(v) for v in metrics.values()), metrics
+    assert [b - a for a, b in zip(before, counts())] == [3, 2, 64, 64, 3]
+    main_stream = torch.cuda.current_stream().cuda_stream
+    assert len(placed_in) == 2 and all(s != main_stream for s in placed_in)  # copied on the prefetcher's own stream
