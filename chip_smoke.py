@@ -60,7 +60,36 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       defaults two runs from one seed part ways within an epoch), the same
       2 epochs again, a second call that resumes from the snapshot at epoch
       3, and its scalars held against an uninterrupted 3-epoch run in other
-      directories.
+      directories;
+  (h) the heavy and medium augmentation pipelines (the MS-CMRSeg default:
+      ``-aug`` absent) at full width: MS-CMRSeg D1+D2+D4, bs 16, 4 classes,
+      raw 256^2 x 3 uint8 slices (the reference's processed PNG size) ->
+      device preprocess with heavy augmentation of both streams -> centre
+      crop to 224^2 -> train step, four times: every metric finite, labels in
+      {0..3}, images in [0, 1], each kernel launched as often as phase (c)'s
+      steps say; one heavy preprocess under
+      ``torch.cuda.set_sync_debug_mode("error")`` and one behind half a
+      second of queued work that must return before the card wakes (no
+      host-device synchronisation); one medium preprocess + step; the
+      preprocess time of heavy, medium, light and no augmentation beside the
+      step; two MM-WHS ``-aug heavy`` preprocess + step calls (softmax D2+D4,
+      256^2) with FPS launched twice a step and the clouds on the candidates
+      of the warped masks; the heavy call on the card held against the same
+      call on the CPU from one set of draws (drawn; every member but the
+      superpixels; the superpixels alone), at the CPU tests' tolerances; each
+      of the 15 SomeOf members (and the blur's three kinds) forced on for the
+      whole batch and timed alone;
+  (i) the reference's MS-CMRSeg command through
+      ``pointcloududa_torch.cli.train_mscmrseg.main`` without ``-aug`` (the
+      heavy pipeline) and with ``-d1 -d2 -d4``: a dataset of 32 + 32 training
+      and 16 + 16 validation PNG slices (256^2 x 3, written by
+      ``utils/png.py``), masks in {0, 85, 212, 255}, 300-point vertex files
+      and the four datalists, fabricated into a temporary directory that the
+      phase removes; 2 epochs of 4 steps at bs 16 with the checks of phase
+      (g) (scalars, checkpoint names, launch counts from steps and
+      validation batches, ms per iteration beside phase (h)'s preprocess +
+      step), and, with cuDNN deterministic, a resumed epoch 3 that must equal
+      an uninterrupted run's bit for bit (phase (g)'s code).
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
@@ -480,7 +509,7 @@ def phase_train_step(torch, dev, rec, card):
     print(f"  train step (bs 16, 224^2, f32, D1+D2+D4, both kernels): median {statistics.median(times[1:]):.2f} ms "
           f"after the first step (all: {', '.join(f'{t:.2f}' for t in times)}), "
           f"peak memory {peak_gib:.2f} GiB, on {card}")
-    return cfg
+    return cfg, {name: n // STEPS for name, n in counts.items()}
 
 
 def phase_step_parity(torch, dev, cfg):
@@ -788,7 +817,7 @@ def phase_mmwhs(torch, dev, rec, card):
     return statistics.median(pre_ms[1:]), statistics.median(step_ms[1:])
 
 
-def _fabricate_mmwhs(root: str, seed: int) -> None:
+def _fabricate_mmwhs(root: str, seed: int) -> int:
     """An MM-WHS dataset in the directory contract of ``data/mmwhs.py``:
     float32 256 x 256 x 3 slices (noise around the structures, so that there
     is something to segment), uint8 masks of four filled ellipses, and (300,
@@ -812,6 +841,7 @@ def _fabricate_mmwhs(root: str, seed: int) -> None:
             if split != "mr_train":
                 np.save(os.path.join(base, "vertices", f"{_id}.npy"), (rng.uniform(size=(300, 3)) * 255.0).astype(np.float32))
         write_ids(os.path.join(root, f"{split}_list.csv"), ids)
+    return sum(RUN_SLICES.values())
 
 
 def _read_scalars(logdir: str) -> dict:
@@ -826,19 +856,28 @@ def _read_scalars(logdir: str) -> dict:
     return recs
 
 
-def phase_training_run(torch, dev, rec, card, pre_step_ms):
-    """(g) the training run through ``cli.train_mmwhs.main``. The first run
-    (timed, counted, its files checked) has cuDNN at its defaults, as phase
-    (f) has. The resume comparison runs with cuDNN deterministic: at its
-    defaults two runs from one seed part ways in the first epoch (atomics in
-    cuDNN's backward, amplified by twelve adversarial steps), so a resumed
-    run could not be told from a faulty one."""
-    from pointcloududa_torch.cli import train_mmwhs
+def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
+    """Train through a command-line entry point a user calls, on a dataset
+    fabricated into a temporary directory that the run removes: 2 epochs with
+    a full snapshot per epoch (timed, counted, its files checked) with cuDNN
+    at its defaults, as the phases before it; then, with cuDNN deterministic
+    (at its defaults two runs from one seed part ways in the first epoch:
+    atomics in cuDNN's backward, amplified by twelve adversarial steps), the
+    same 2 epochs, a second call that resumes at epoch 3 from the snapshot,
+    and an uninterrupted 3-epoch run in other directories, whose epoch 3 the
+    resumed one must equal.
+
+    ``run_spec``: ``path`` (the kernel table's name of the run), ``main``
+    (the entry point), ``argv`` (its flags but for the epochs and the
+    directories), ``fabricate(root)``, ``want`` (the launches of the first 2
+    epochs, from steps, cadence and validation batches), ``nets`` (the
+    snapshot's networks), ``files`` (the checkpoints' name stems),
+    ``steps`` (per epoch), ``val_batches``, ``bit_equal`` (whether the resumed
+    epoch must equal the uninterrupted one bit for bit, or within the step
+    tolerance)."""
     from pointcloududa_torch.train import checkpoint, loop
 
-    steps = -(-RUN_NS // RUN_BS)
-    cadence_steps = -(-steps // RUN_VERT_T_EVERY)
-    val_batches = sum(-(-RUN_SLICES[s] // RUN_BS) for s in ("mr_val", "ct_val", "ct_train"))
+    steps, val_batches = run_spec["steps"], run_spec["val_batches"]
     tmp = tempfile.mkdtemp(prefix="pcuda_smoke_")
     train_s, valid_s, waits = [], [], []
     originals = loop.UDATrainer.train_epoch, loop.UDATrainer.validate, loop.DevicePrefetcher
@@ -869,21 +908,20 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms):
         return wrapper
 
     def run(tag, epochs):
-        argv = ["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-e", str(epochs), "-nf", "32", "-aug", "light", "-softmax", "-d2",
-                "-d4", "-vert_t_every", str(RUN_VERT_T_EVERY), "-skip_final_eval", "-data_dir", os.path.join(tmp, "data"),
-                "-workdir", os.path.join(tmp, tag, "weights"), "-logdir", os.path.join(tmp, tag, "runs"),
-                "-resume", os.path.join(tmp, tag, "snap")]
+        argv = run_spec["argv"] + ["-e", str(epochs), "-data_dir", os.path.join(tmp, "data"),
+                                   "-workdir", os.path.join(tmp, tag, "weights"), "-logdir", os.path.join(tmp, tag, "runs"),
+                                   "-resume", os.path.join(tmp, tag, "snap")]
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            train_mmwhs.main(argv)  # no device given: the card
+            run_spec["main"](argv)  # no device given: the card
         for line in out.getvalue().splitlines():
             print(f"    | {line}")
         return out.getvalue()
 
     try:
         t0 = time.perf_counter()
-        _fabricate_mmwhs(os.path.join(tmp, "data"), seed=5)
-        print(f"  fabricated {sum(RUN_SLICES.values())} MM-WHS slices in {time.perf_counter() - t0:.1f} s")
+        n_files = run_spec["fabricate"](os.path.join(tmp, "data"))
+        print(f"  fabricated {n_files} slices in {time.perf_counter() - t0:.1f} s")
         loop.UDATrainer.train_epoch = timed(originals[0], train_s)
         loop.UDATrainer.validate = timed(originals[1], valid_s)
         loop.DevicePrefetcher = TimedPrefetcher
@@ -893,18 +931,10 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms):
         text = run("a", 2)
         counts = _launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-        want = {
-            "fps": 2 * (steps + cadence_steps),
-            "chamfer_forward": 2 * (steps + cadence_steps + val_batches),
-            "chamfer_nn_forward": 0,
-            "chamfer_backward": 2 * steps,
-            "bn_stats_forward": 2 * steps * 32,
-            "bn_stats_backward": 2 * steps * 32,
-        }
+        want = run_spec["want"]
         _require(counts == want, f"launches in the training run {counts}, derived from steps, cadence and validation batches {want}")
-        _record_launches(rec, "mmwhs_training_run", counts, set(counts) - {"chamfer_nn_forward"})
-        print(f"  launches in 2 epochs of {steps} steps ({cadence_steps} with the target cloud) and {val_batches} validation batches: "
-              f"{counts}, as derived")
+        _record_launches(rec, run_spec["path"], counts, {k for k, v in want.items() if v})
+        print(f"  launches in 2 epochs of {steps} steps and {val_batches} validation batches each: {counts}, as derived")
         _require("[1/2]" in text and "[2/2]" in text and "continuing at epoch" not in text, "the first run must train epochs 1 and 2 from scratch")
         scalars = _read_scalars(os.path.join(tmp, "a", "runs"))
         _require(sorted(scalars) == [1, 2], f"epochs logged: {sorted(scalars)}")
@@ -914,7 +944,8 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms):
         apdx = text.splitlines()[0]
         weights = os.path.join(tmp, "a", "weights")
         files = sorted(os.listdir(weights))
-        for name in (f"unet_model_checkpoint_{apdx}", f"entropy_dis_{apdx}", f"point_dis_{apdx}"):
+        for stem in run_spec["files"]:
+            name = f"{stem}_{apdx}"
             _require(name in files, f"{name} missing among {files}")
             payload = checkpoint.restore_pytree(os.path.join(weights, name))
             _require(payload["epoch"] == 2 and {"model", "optimizer"} <= set(payload["state"]["net"]), f"{name}: unexpected layout")
@@ -922,7 +953,8 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms):
         _require(len(best) == 1 and "model" in checkpoint.restore_pytree(os.path.join(weights, best[0]))["state"]["net"],
                  f"the renamed best checkpoint is missing among {files}")
         snap = checkpoint.restore_pytree(os.path.join(tmp, "a", "snap"))
-        _require(snap["epoch"] == 2 and set(snap["nets"]) == {"gen", "d2", "d4"} and snap["step"] == 2 * steps, "snapshot: unexpected content")
+        _require(snap["epoch"] == 2 and set(snap["nets"]) == run_spec["nets"] and snap["step"] == 2 * steps,
+                 "snapshot: unexpected content")
         print(f"  {len(scalars[2])} scalars per epoch, all finite; checkpoints {files} and the snapshot load")
 
         # resume: 2 epochs, a second call that continues at epoch 3, and 3 epochs without a break elsewhere
@@ -937,6 +969,7 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms):
         for key, v in ref.items():
             _require(abs(got[key] - v) <= STEP_ATOL + STEP_RTOL * abs(v), f"epoch 3 {key}: resumed {got[key]} vs uninterrupted {v}")
             worst, equal = max(worst, abs(got[key] - v)), equal and got[key] == v
+        _require(equal or not run_spec["bit_equal"], f"the resumed epoch 3 is not bit-equal to the uninterrupted one (max |diff| {worst})")
         print(f"  resumed epoch 3 vs an uninterrupted 3-epoch run: {len(ref)} scalars agree (max |diff| {worst:.3g}; "
               f"{'bit-equal' if equal else 'not bit-equal'}; rtol {STEP_RTOL}, atol {STEP_ATOL}; cuDNN deterministic)")
     finally:
@@ -951,11 +984,360 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms):
     print(f"  training iteration in the loop (decode, prefetch, preprocess, step, the epoch's metric fetch; {steps} an epoch): "
           f"{per_it[1]:.2f} ms in epoch 2 of the first run (epoch 1: {per_it[0]:.2f}), of which the training thread waited for "
           f"its batches {sum(waits[1]) / steps * 1e3:.2f} ms ({waits[1][0] * 1e3:.1f} ms for the epoch's first, which nothing hides, "
-          f"{sum(waits[1][1:]) * 1e3:.1f} ms for the other {steps - 1}); phase (f) preprocess + step: "
+          f"{sum(waits[1][1:]) * 1e3:.1f} ms for the other {steps - 1}); {run_spec['beside']} preprocess + step: "
           f"{pre_step_ms[0]:.2f} + {pre_step_ms[1]:.2f} = {sum(pre_step_ms):.2f} ms; with cuDNN deterministic, the epochs that are "
           f"not a call's first: median {statistics.median(per_it[i] for i in (3, 6, 7)):.2f} ms (all six: "
           f"{', '.join(f'{t:.1f}' for t in per_it[2:])}); the three validations of {val_batches} batches: median "
           f"{statistics.median(valid_s) * 1e3:.1f} ms, on {card}")
+    return per_it[1]
+
+
+def phase_training_run(torch, dev, rec, card, pre_step_ms):
+    """(g) the MM-WHS training run through ``cli.train_mmwhs.main``."""
+    from pointcloududa_torch.cli import train_mmwhs
+
+    steps = -(-RUN_NS // RUN_BS)
+    cadence_steps = -(-steps // RUN_VERT_T_EVERY)
+    val_batches = sum(-(-RUN_SLICES[s] // RUN_BS) for s in ("mr_val", "ct_val", "ct_train"))
+    _cli_training_run(torch, dev, rec, card, dict(
+        path="mmwhs_training_run", main=train_mmwhs.main,
+        argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-nf", "32", "-aug", "light", "-softmax", "-d2", "-d4",
+              "-vert_t_every", str(RUN_VERT_T_EVERY), "-skip_final_eval"],
+        fabricate=lambda root: _fabricate_mmwhs(root, seed=5),
+        want={
+            "fps": 2 * (steps + cadence_steps),
+            "chamfer_forward": 2 * (steps + cadence_steps + val_batches),
+            "chamfer_nn_forward": 0,
+            "chamfer_backward": 2 * steps,
+            "bn_stats_forward": 2 * steps * 32,
+            "bn_stats_backward": 2 * steps * 32,
+        },
+        nets={"gen", "d2", "d4"}, files=("unet_model_checkpoint", "entropy_dis", "point_dis"),
+        steps=steps, val_batches=val_batches, bit_equal=False, beside="phase (f)",
+    ), pre_step_ms)
+
+
+# phase (h): the heavy pipeline at full width; raw MS-CMRSeg slices are the
+# reference's processed PNGs, 256^2 (``origin_size``), cropped to 224 after
+# augmentation
+HEAVY_STEPS, HEAVY_RAW, HEAVY_TIMED = 4, 256, 5
+# card-vs-CPU agreement of one heavy call (tests/test_torch_port_augment_heavy.py):
+# the share of a sample's pixels beyond PIPE_ATOL on 0..255 where the
+# superpixels touched it (their k-means parts ways on a last-bit difference)
+# and where not, and of mask pixels. With every member on, a sample goes
+# through 14 ops whose rounding steps (the median's integer input, the
+# snapped fetch) turn a last-bit difference in the geometry into steps of 1
+# that a median window spreads: EVERY_SHARE
+PIPE_ATOL, SUPERPIXEL_SHARE, SAMPLE_SHARE, MASK_SHARE, EVERY_SHARE = 0.05, 0.5, 0.005, 0.005, 0.05
+
+
+# CUDA runtime calls that make the host wait for the device
+SYNCING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpy2D",
+                 "cudaMemset", "cudaFree", "cudaFreeHost")
+
+
+def _trace_calls(torch, fn) -> dict:
+    """The CUDA runtime calls ``fn`` makes and the device time of its
+    kernels, from a ``torch.profiler`` trace of one call; fails on a call
+    that makes the host wait for the device. ``None`` where the trace holds
+    no runtime call (the profiler saw nothing: not measured)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("traced_call"):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == "traced_call" and e.device_type.name == "CPU"]
+    if not window:
+        return None
+    lo, hi = window[0].time_range.start, window[0].time_range.end
+    calls: dict = {}
+    for e in events:
+        if e.name.startswith("cuda") and e.device_type.name == "CPU" and lo <= e.time_range.start <= hi:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    if not calls:
+        return None
+    # the record_function's own range shows on the device too: not a kernel
+    kernels = [e for e in events if e.device_type.name == "CUDA" and lo <= e.time_range.start and e.name != "traced_call"]
+    syncing = {k: v for k, v in calls.items() if k in SYNCING_CALLS}
+    _require(not syncing, f"synchronising CUDA runtime calls in one call: {syncing}")
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name[:60], (0, 0.0))
+        by_name[e.name[:60]] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"runtime_calls": calls, "kernels": len(kernels), "kernel_ms": sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+            "host_ms": window[0].time_range.elapsed_us() / 1e3, "top_kernels": [[k, n, t] for k, (n, t) in top]}
+
+
+def _trace_text(trace) -> str:
+    if trace is None:
+        return "the profiler trace holds no CUDA runtime call (launch count and device time not measured)"
+    calls = trace["runtime_calls"]
+    return (f"its profiler trace: {calls.get('cudaLaunchKernel', 0)} kernel launches, none of {', '.join(SYNCING_CALLS)}; "
+            f"{trace['kernels']} kernels, {trace['kernel_ms']:.2f} ms of device time in {trace['host_ms']:.2f} ms of host time "
+            f"(runtime calls: {calls}; the largest kernels by device time, [name, count, ms]: {trace['top_kernels']})")
+
+
+def _heavy_raws(torch, cfg, n, dev, seed=0):
+    """``n`` raw batches at 256^2 on the card (``synthetic_raw_batch`` draws
+    at ``crop_size``, so it is asked for 256^2)."""
+    import dataclasses
+
+    from pointcloududa_torch.data.synthetic import synthetic_raw_batch
+
+    big = dataclasses.replace(cfg, crop_size=HEAVY_RAW)
+    return [_to_device(torch, synthetic_raw_batch(big, cfg.bs, seed=seed + s), dev) for s in range(n)]
+
+
+def _agree(torch, got, want, draws, what, share=SAMPLE_SHARE):
+    """Hold two heavy outputs (images, masks) as the CPU tests do: at most
+    ``share`` of a sample's pixels beyond PIPE_ATOL (SUPERPIXEL_SHARE where
+    the superpixels touched it); returns the worst share outside the
+    superpixels."""
+    (gi, gm), (wi, wm) = got, want
+    differ = ((gi.cpu() - wi.cpu()).abs().amax(-1) > PIPE_ATOL).flatten(1).float().mean(1)
+    touched = draws["active"][:, 0]
+    _require(bool((differ[~touched] <= share).all()) and bool((differ[touched] <= SUPERPIXEL_SHARE).all()),
+             f"{what}: shares of pixels beyond {PIPE_ATOL}: {differ.tolist()} (superpixels: {touched.tolist()}, "
+             f"blur kinds: {draws['blur_choice'].tolist()})")
+    if gm is not None:
+        mask_share = float((gm.cpu() != wm.cpu()).float().mean())
+        _require(mask_share <= MASK_SHARE, f"{what}: {mask_share:.4%} of mask pixels differ")
+    return float(differ[~touched].max()) if bool((~touched).any()) else 0.0
+
+
+def phase_heavy(torch, dev, rec, card, per_step):
+    """(h) the heavy and medium pipelines on the card."""
+    import dataclasses
+
+    from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
+    from pointcloududa_torch.data.synthetic import synthetic_raw_batch
+    from pointcloududa_torch.ops import augment
+    from pointcloududa_torch.train.loop import make_device_preprocess
+    from pointcloududa_torch.train.state import create_train_state
+    from pointcloududa_torch.train.step import make_train_step
+    from pointcloududa_torch.utils.timing import event_ms
+
+    cfg = mscmrseg_default(d1=True, d2=True, d4=True, bs=16, aug="heavy", compute_dtype="float32",
+                           chamfer_impl="pallas", bn_stats_impl="pallas")
+    _require((cfg.crop_size, cfg.n_class, cfg.aug) == (224, 4, "heavy"), "not the MS-CMRSeg widths and default pipeline")
+    state = create_train_state(cfg, seed=0)
+    step = make_train_step(cfg, state.models, state.optimizers)
+    preprocess = make_device_preprocess(cfg, train=True, device_augment=True)
+    gen, host = torch.Generator(device=dev).manual_seed(21), torch.Generator().manual_seed(22)
+    raws = _heavy_raws(torch, cfg, HEAVY_STEPS, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # raw 256^2 batch -> heavy augmentation of both streams -> crop 224 -> step, four times
+    _reset_launches()
+    pre_ms, step_ms, history = [], [], []
+    for raw in raws:
+        batch, t = event_ms(lambda: preprocess(gen, raw, host_generator=host))
+        pre_ms.append(t)
+        for side in ("s", "t"):
+            img = batch[f"img_{side}"]
+            _require(tuple(img.shape) == (16, 224, 224, 3) and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                     f"img_{side}: {tuple(img.shape)} in [{float(img.min())}, {float(img.max())}], not 224^2 in [0, 1]")
+        _require(bool((batch["mask_s"].sum(-1) == 1).all()) and batch["mask_s"].shape[-1] == 4, "labels left {0..3}")
+        (state, metrics), t = event_ms(lambda: step(state, batch))
+        step_ms.append(t)
+        history.append(metrics)
+    counts = _launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    for i, metrics in enumerate(history):
+        values = {k: float(v) for k, v in metrics.items()}
+        bad = [k for k, v in values.items() if not np.isfinite(v)]
+        _require(not bad, f"heavy step {i}: non-finite metrics {bad}")
+        print(f"  step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(values.items())))
+    want = {name: n * HEAVY_STEPS for name, n in per_step.items()}
+    _require(counts == want, f"launches in {HEAVY_STEPS} heavy preprocess + step calls {counts}, phase (c)'s per step x {HEAVY_STEPS}: {want}")
+    _record_launches(rec, "mscmrseg_heavy", counts, {k for k, v in want.items() if v})
+    print(f"  launches in {HEAVY_STEPS} heavy preprocess + step calls: {counts} (phase (c)'s per step x {HEAVY_STEPS})")
+    pre_heavy, step_med = statistics.median(pre_ms[1:]), statistics.median(step_ms[1:])
+    print(f"  MS-CMRSeg heavy device preprocess (bs 16, 256^2 -> 224^2, both streams): median {pre_heavy:.2f} ms over calls "
+          f"1-{HEAVY_STEPS - 1} (all: {', '.join(f'{t:.2f}' for t in pre_ms)}); train step (D1+D2+D4, all kernels): median "
+          f"{step_med:.2f} ms (all: {', '.join(f'{t:.2f}' for t in step_ms)}); peak memory {peak_gib:.2f} GiB, on {card}")
+
+    # no host-device synchronisation in a heavy preprocess: PyTorch's sync
+    # check raises on one, and the CUDA runtime calls of one call in a
+    # profiler trace include no synchronising call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        preprocess(gen, raws[0], host_generator=host)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    trace = _trace_calls(torch, lambda: preprocess(gen, raws[1], host_generator=host))
+    print(f"  one heavy preprocess under torch.cuda.set_sync_debug_mode('error'): no synchronisation; {_trace_text(trace)}")
+
+    # medium: one preprocess + step
+    med_cfg = dataclasses.replace(cfg, aug="aug2")
+    batch = make_device_preprocess(med_cfg, True, True)(gen, raws[2], host_generator=host)
+    state, metrics = step(state, batch)
+    values = {k: float(v) for k, v in metrics.items()}
+    _require(all(np.isfinite(v) for v in values.values()) and float(batch["img_s"].max()) <= 1.0, f"medium step: {values}")
+    print(f"  medium (aug2) preprocess + step: {len(values)} metrics finite (seg_loss {values['seg_loss']:.5f})")
+
+    # preprocess time by pipeline, beside the step: device span between two
+    # events (host time included) and host time to enqueue with the card idle
+    spans = {}
+    for aug in ("heavy", "aug2", "light", ""):
+        pre = make_device_preprocess(dataclasses.replace(cfg, aug=aug), True, True)
+        pre(gen, raws[0], host_generator=host)  # warm-up
+        ms, host_ms = [], []
+        for i in range(HEAVY_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, t = event_ms(lambda: pre(gen, raws[i % HEAVY_STEPS], host_generator=host))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ms.append(t)
+        spans[aug or "none"] = (statistics.median(ms), statistics.median(host_ms))
+    print("  MS-CMRSeg preprocess by pipeline (bs 16, both streams, median of 5): " + "; ".join(
+        f"{k} {v[0]:.2f} ms ({v[1]:.2f} ms host to return)" for k, v in spans.items())
+          + f"; the train step beside them {step_med:.2f} ms, on {card}")
+
+    # MM-WHS -aug heavy: clouds regenerated from the warped masks by FPS
+    mcfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="heavy", bs=16, compute_dtype="float32",
+                         chamfer_impl="pallas", bn_stats_impl="pallas")
+    mstate = create_train_state(mcfg, seed=0)
+    mstep = make_train_step(mcfg, mstate.models, mstate.optimizers)
+    mpre = make_device_preprocess(mcfg, True, True)
+    mraws = [_to_device(torch, synthetic_raw_batch(mcfg, mcfg.bs, seed=30 + s), dev) for s in range(2)]
+    heavy = augment.heavy()
+    shape = (256, 256, 3)
+    _reset_launches()
+    mms = []
+    for raw in mraws:
+        draws = {f"aug_{side}": augment.sample_draws(gen, heavy, mcfg.bs, dev, shape, host) for side in ("s", "t")}
+        batch, t = event_ms(lambda: mpre(gen, raw, draws=draws))
+        (mstate, metrics), t2 = event_ms(lambda: mstep(mstate, batch))
+        mms.append((t, t2))
+        values = {k: float(v) for k, v in metrics.items()}
+        _require(all(np.isfinite(v) for v in values.values()), f"MM-WHS heavy step: {values}")
+        blank = torch.zeros((mcfg.bs, 256, 256, 3), device=dev)
+        for side in ("s", "t"):
+            _, warped = augment.augment_from_draws(heavy, blank, raw[f"mask_{side}"], draws[f"aug_{side}"])
+            _require(_on_candidates(torch, batch[f"vert_{side}"] * 255.0, warped), f"vert_{side}: a point off the warped mask's candidates")
+    mcounts = _launch_counts()
+    _require(mcounts["fps"] == 2 * len(mraws), f"fps launched {mcounts['fps']} times in {len(mraws)} steps, not twice per step")
+    _record_launches(rec, "mmwhs_heavy", mcounts, {"fps", "chamfer_forward", "chamfer_backward", "bn_stats_forward", "bn_stats_backward"})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mpre(gen, mraws[0], host_generator=host)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mtrace = _trace_calls(torch, lambda: mpre(gen, mraws[1], host_generator=host))
+    print(f"  MM-WHS -aug heavy (softmax D2+D4, 256^2): 2 preprocess + step calls, metrics finite, fps launched "
+          f"{mcounts['fps']} times, clouds on the warped masks' candidates; preprocess {mms[1][0]:.2f} ms, step {mms[1][1]:.2f} ms "
+          f"(second call); its preprocess: no synchronisation under the sync check, {_trace_text(mtrace)}; launches {mcounts}, "
+          f"on {card}")
+    del mstate, mstep
+
+    # one fixed set of draws on the card against the same call on the CPU
+    img, masks = raws[0]["img_s"], raws[0]["mask_s"]
+    draws = augment.sample_draws(gen, heavy, cfg.bs, dev, shape, host)
+    cpu = lambda d: {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in d.items()}  # noqa: E731
+    worst = _agree(torch, augment.augment_from_draws(heavy, img, masks, draws),
+                   augment.augment_from_draws(heavy, img.cpu(), masks.cpu(), cpu(draws)), draws, "drawn heavy call")
+    fired = draws["active"].sum(0).tolist()
+    # every member but the superpixels on 4 samples, and the superpixels alone
+    every = dict(draws, active=torch.ones((cfg.bs, 15), dtype=torch.bool))
+    every["active"][:, 0] = False
+    sub = lambda d: {k: (v[:4] if torch.is_tensor(v) and v.dim() and v.shape[0] == cfg.bs else v) for k, v in d.items()}  # noqa: E731
+    worst_every = _agree(torch, augment.augment_from_draws(heavy, img[:4], masks[:4], sub(every)),
+                         augment.augment_from_draws(heavy, img[:4].cpu(), masks[:4].cpu(), cpu(sub(every))), sub(every),
+                         "every member but the superpixels", EVERY_SHARE)
+    only_sp = dict(draws, active=torch.zeros((cfg.bs, 15), dtype=torch.bool))
+    only_sp["active"][:, 0] = True
+    _agree(torch, augment.augment_from_draws(heavy, img[:4], masks[:4], sub(only_sp)),
+           augment.augment_from_draws(heavy, img[:4].cpu(), masks[:4].cpu(), cpu(sub(only_sp))), sub(only_sp), "superpixels")
+    print(f"  heavy call on the card vs the CPU from one set of draws (bs 16, members fired {fired}): worst share of a sample's "
+          f"pixels beyond {PIPE_ATOL} outside the superpixels {worst:.4%}; every member but the superpixels on 4 samples (blur "
+          f"kinds {draws['blur_choice'][:4].tolist()}): {worst_every:.4%}; the superpixels alone on 4 samples within "
+          f"{SUPERPIXEL_SHARE:.0%}; masks within {MASK_SHARE:.1%} everywhere")
+
+    # each SomeOf member forced on for the whole batch, alone: the heavy call
+    # with the outer children off; the base is the same call with no member
+    quiet = dict(draws, gates=torch.zeros_like(draws["gates"]))
+
+    def member_ms(active, choice=None):
+        d = dict(quiet, active=active)
+        if choice is not None:
+            d["blur_choice"] = torch.full((cfg.bs,), choice, dtype=torch.int64)
+        augment.augment_from_draws(heavy, img, masks, d)
+        return statistics.median(event_ms(lambda: augment.augment_from_draws(heavy, img, masks, d))[1] for _ in range(3))
+
+    base = member_ms(torch.zeros((cfg.bs, 15), dtype=torch.bool))
+    per_member = {}
+    for j, name in enumerate(augment.MEMBERS):
+        active = torch.zeros((cfg.bs, 15), dtype=torch.bool)
+        active[:, j] = True
+        per_member[name] = member_ms(active)
+        if name == "blur":
+            for k, kind in enumerate(augment.BLURS):
+                per_member[kind] = member_ms(active, k)
+    print(f"  heavy call (bs 16, 256^2, image + mask) with each member forced on for every sample, ms: no member {base:.2f}; "
+          + ", ".join(f"{k} {v:.2f}" for k, v in per_member.items()) + f", on {card}")
+    print("  HEAVY_JSON " + json.dumps({"card": card, "base_ms": base, "member_ms": per_member, "preprocess_ms": spans,
+                                        "step_ms": step_med, "heavy_pre_ms": pre_heavy, "peak_gib": peak_gib,
+                                        "heavy_trace": trace, "mmwhs_heavy_trace": mtrace}))
+    return pre_heavy, step_med
+
+
+# phase (i): a fabricated MS-CMRSeg dataset, per split: its mask directory,
+# datalist and number of PNG slices
+MS_SPLITS = {"trainA": ("trainAmask", "aug_trainA.csv", 32), "trainB": ("trainBmask", "aug_trainB.csv", 32),
+             "testA": ("testAmask", "testA.csv", 16), "trainB_orig": ("trainBmask_orig", "testB.csv", 16)}
+
+
+def _fabricate_mscmrseg(root: str, seed: int) -> int:
+    """An MS-CMRSeg dataset in the directory contract of ``data/mscmrseg.py``,
+    written with ``utils/png.py``: 256 x 256 x 3 uint8 slices (noise around
+    the structures), grey masks of three filled ellipses in the reference's
+    values {0, 85, 212, 255}, (300, 3) vertex files on the 0..255 scale, and
+    the four datalists."""
+    from pointcloududa_torch.data.manifest import write_ids
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks
+    from pointcloududa_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    values = np.array([0, 85, 212, 255], np.uint8)
+    for j, (split, (mask_split, datalist, n)) in enumerate(MS_SPLITS.items()):
+        img_dir, mask_dir = os.path.join(root, "processed", split), os.path.join(root, "processed", mask_split)
+        vert_dir = os.path.join(root, "vertices", split)
+        for d in (img_dir, mask_dir, vert_dir):
+            os.makedirs(d, exist_ok=True)
+        ids = [f"{split}_slice{i}" for i in range(n)]
+        for _id, mask in zip(ids, synthetic_blob_masks(n, HEAVY_RAW, seed=seed + 1 + j, n_class=4)):
+            img = np.clip(rng.normal(90.0, 30.0, (HEAVY_RAW, HEAVY_RAW, 3)) + 40.0 * mask[..., None], 0, 255).astype(np.uint8)
+            write_png(os.path.join(img_dir, f"{_id}.png"), img)
+            write_png(os.path.join(mask_dir, f"{_id}.png"), values[mask])
+            np.save(os.path.join(vert_dir, f"{_id}.npy"), (rng.uniform(size=(300, 3)) * 255.0).astype(np.float32))
+        write_ids(os.path.join(root, datalist), ids)
+    return sum(n for _, _, n in MS_SPLITS.values())
+
+
+def phase_mscmrseg_run(torch, dev, rec, card, per_step, pre_step_ms):
+    """(i) the reference's MS-CMRSeg command through ``cli.train_mscmrseg.main``:
+    no ``-aug`` (the heavy pipeline), ``-d1 -d2 -d4``."""
+    from pointcloududa_torch.cli import train_mscmrseg
+
+    steps = -(-RUN_NS // RUN_BS)
+    val_batches = sum(-(-MS_SPLITS[s][2] // RUN_BS) for s in ("testA", "trainB_orig", "trainB"))
+    want = {name: n * 2 * steps for name, n in per_step.items()}
+    want["chamfer_forward"] += 2 * val_batches  # one forward per validation batch, in each of the 2 epochs
+    _cli_training_run(torch, dev, rec, card, dict(
+        path="mscmrseg_training_run", main=train_mscmrseg.main,
+        argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-d1", "-d2", "-d4"],
+        fabricate=lambda root: _fabricate_mscmrseg(root, seed=7), want=want,
+        nets={"gen", "d1", "d2", "d4"}, files=("unet_model_checkpoint", "out_dis", "entropy_dis", "point_dis"),
+        steps=steps, val_batches=val_batches, bit_equal=True, beside="phase (h)",
+    ), pre_step_ms)
 
 
 def main() -> int:
@@ -996,7 +1378,7 @@ def main() -> int:
     seconds["b"] = time.perf_counter() - t0
     print("(c) train step")
     t0 = time.perf_counter()
-    cfg = phase_train_step(torch, dev, rec, smi)
+    cfg, per_step = phase_train_step(torch, dev, rec, smi)
     phase_step_parity(torch, dev, cfg)
     seconds["c"] = time.perf_counter() - t0
     print("(d) eval step")
@@ -1015,6 +1397,14 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_training_run(torch, dev, rec, smi, pre_step_ms)
     seconds["g"] = time.perf_counter() - t0
+    print("(h) the heavy and medium pipelines: MS-CMRSeg and MM-WHS raw batch -> device preprocess -> train step")
+    t0 = time.perf_counter()
+    heavy_pre_step_ms = phase_heavy(torch, dev, rec, smi, per_step)
+    seconds["h"] = time.perf_counter() - t0
+    print("(i) the MS-CMRSeg training run: fabricated PNG dataset -> cli.train_mscmrseg.main without -aug (heavy), resume")
+    t0 = time.perf_counter()
+    phase_mscmrseg_run(torch, dev, rec, smi, per_step, heavy_pre_step_ms)
+    seconds["i"] = time.perf_counter() - t0
     print("host seconds by phase: " + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
 
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

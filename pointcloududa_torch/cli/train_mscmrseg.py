@@ -7,15 +7,15 @@ extras (``-dtype``, ``-ndev``, ``-workdir``, ``-logdir``, ``-host_aug``,
 ``-workers``). What differs here, each said in the flag's help: ``-dtype``
 defaults to ``float32``; ``-no_packed`` parses and changes nothing;
 ``-ndev`` above 1, ``-dist`` and ``-host_aug`` are not ported. Without
-``-aug`` the run asks for the heavy augmentation pipeline (``-aug2``: the
-medium one), which is not ported either: the trainer refuses at
-construction, so for now train with ``-aug`` (augmentation off). Training
-runs on the current CUDA device with the hand-written kernels (Chamfer, BN
-statistics).
+``-aug`` the run augments with the heavy pipeline on the device, as the
+reference does (``-aug2``: the medium one; ``-aug``: no augmentation).
+Training runs on the current CUDA device with the hand-written kernels
+(Chamfer, BN statistics). PNG slices are read by ``utils/png.py``, without
+OpenCV.
 
-Usage:
+Usage (the reference's command):
   python -m pointcloududa_torch.cli.train_mscmrseg -bs 16 -ns 2000 -e 200 \
-      -d1 -d2 -d4 -aug -data_dir ./input_aug
+      -d1 -d2 -d4 -data_dir ./input_aug
 """
 
 from __future__ import annotations
@@ -30,10 +30,8 @@ from pointcloududa_torch.config import appendix
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-aug", action="store_false",
-                   help="whether NOT to augment the data; without it the heavy pipeline is asked "
-                   "for, which is not ported (ROADMAP Queue 1 item 9)")
-    p.add_argument("-aug2", action="store_true",
-                   help="augment with the 2nd (medium) method; not ported (ROADMAP Queue 1 item 9)")
+                   help="whether NOT to augment the data; without it the heavy pipeline runs on the device")
+    p.add_argument("-aug2", action="store_true", help="augment with the 2nd (medium) method")
     p.add_argument("-load_weight", action="store_true")
     p.add_argument("-bs", type=int, default=16)
     p.add_argument("-ns", help="samples per epoch", type=int, default=2000)

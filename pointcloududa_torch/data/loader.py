@@ -30,7 +30,7 @@ from pointcloududa_torch.parallel import pad_batch
 
 class BatchAssembler:
     """Decodes a list of indices into one batch dict via a thread pool
-    (cv2/np.load release the GIL)."""
+    (zlib and np.load release the GIL)."""
 
     def __init__(self, adapter, workers: int = 4, host_augment: Optional[Callable] = None,
                  regen_vertices: bool = False):

@@ -1,9 +1,9 @@
 """MS-CMRSeg dataset adapter (bSSFP source -> LGE target; the port's own copy
-of the JAX package's ``data/mscmrseg.py``; ``cv2`` is imported only when a
-record is decoded).
+of the JAX package's ``data/mscmrseg.py``, but for the PNG decoder:
+``utils/png.py`` reads the files as ``cv2.imread`` does, without OpenCV).
 
 Decoding parity with reference ``src/data_generator_mscmrseg.py:186-319``:
-PNG slices (3-channel via cv2), grayscale masks with values
+PNG slices (3-channel, BGR, as cv2 reads them), grayscale masks with values
 {0, 85, 212, 255} -> {0, 1, 2, 3} (``:262-265``), precomputed 300x3 vertex
 ``.npy`` files; images /255-normalised AFTER augmentation, centre-cropped to
 ``crop_size``; vertices /255 (``:305-317``).
@@ -25,6 +25,8 @@ from dataclasses import dataclass
 
 
 import numpy as np
+
+from pointcloududa_torch.utils.png import IMREAD_GRAYSCALE, read_png
 
 _MASK_LUT = None
 
@@ -68,13 +70,9 @@ class MSCMRSegAdapter:
         return len(self.ids)
 
     def __call__(self, index: int):
-        import cv2
-
         _id = self.ids[index]
-        img = cv2.imread(os.path.join(self._img_dir, f"{_id}.png"))  # BGR uint8, 3ch
-        if img is None:
-            raise FileNotFoundError(os.path.join(self._img_dir, f"{_id}.png"))
-        mask = cv2.imread(os.path.join(self._mask_dir, f"{_id}.png"), cv2.IMREAD_GRAYSCALE)
+        img = read_png(os.path.join(self._img_dir, f"{_id}.png"))  # BGR uint8, 3ch; a missing file raises
+        mask = read_png(os.path.join(self._mask_dir, f"{_id}.png"), IMREAD_GRAYSCALE)
         mask = decode_mask_values(mask)
         vert = None
         if self.load_vertices:

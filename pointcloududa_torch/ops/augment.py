@@ -1,28 +1,38 @@
-"""Device-side, batched data augmentation: the **light** pipeline of
-``pointcloududa_tpu/ops/augment.py`` (flips + a gentle affine, no intensity
-entries), the only one the reference's MM-WHS generator calls
-(``src/data_generator_mmwhs.py:87-122``, called at ``:253``).
-
-The configs :func:`heavy` and :func:`medium` are here because they
-are data, but :func:`make_augment_fn` builds the light family only
-(``someof_n == 0`` and every intensity, elastic, piecewise and perspective
-gate at 0): the twelve intensity entries and the three SomeOf geometry
-members are still to be ported (ROADMAP Queue 1 item 9).
+"""Device-side, batched data augmentation: the port of
+``pointcloududa_tpu/ops/augment.py``, all three of the reference's pipelines
+(``src/data_generator_mscmrseg.py:20-167``, ``src/data_generator_mmwhs.py:
+87-122``): :func:`heavy` (``augmentation``, the MS-CMRSeg default),
+:func:`medium` (``augmentation2``) and :func:`light` (``light_aug``).
 
 Structure, as in the JAX package: the four LINEAR children of the outer
 ``Sequential(random_order=True)`` (Fliplr, Flipud, CropAndPad, Affine) are
 per-sample inverse 3x3 maps, composed in an order drawn once per batch
 (imgaug's meta augmenters iterate children over the whole batch in one
-permutation), and applied as ONE resample per image
-(:func:`_warp_one`). Masks ride the same resample as a nearest-neighbour
-plane with constant-0 borders (imgaug hardcodes ``mode="constant", cval=0``
-for segmentation maps) and never receive intensity ops.
+permutation), and applied as ONE resample per image (:func:`_warp_one`)
+together with the SomeOf geometry members (perspective in the product,
+elastic and piecewise-affine as a displacement field). The twelve intensity
+entries of ``SomeOf((0, 5))`` (superpixels, blur OneOf{gaussian, average,
+median}, sharpen, emboss, simplex-noise edge blend, additive noise, dropout
+OneOf{pixel, coarse}, invert, add, hue/saturation, multiply, grayscale) run
+in an order drawn once per batch, before or after the warp as the outer
+order places the SomeOf child. Masks ride the resample as a
+nearest-neighbour plane with constant-0 borders (imgaug hardcodes
+``mode="constant", cval=0`` for segmentation maps) and never receive
+intensity ops. The remaining deviations from imgaug are the JAX package's
+and are listed in its module docstring.
 
 Each sampler is split from its arithmetic: :func:`sample_draws` is the only
-function that draws random numbers (from an explicit ``torch.Generator``);
-:func:`child_matrices_from_params`, :func:`_warp_one` and
-:func:`augment_from_draws` are deterministic functions of tensors, so a test
-can feed them the values another framework drew.
+function that draws random numbers; :func:`augment_from_draws` and the ops it
+calls are deterministic functions of tensors, so a test can feed them the
+values another framework drew.
+
+Where the JAX package traces every entry for every sample and selects (its
+``lax.switch`` over a traced order), the port decides on the host: the
+per-batch orders, the SomeOf members that fire and the blur choice are drawn
+on a CPU generator, and each op runs only on the samples that take it, which
+gives the same images. Nothing in a call waits for the device: the host
+reads only its own draws, and the sample indices go to the device in one
+non-blocking copy.
 
 ``torch.nn.functional.grid_sample`` is not used: its rounding and border
 rules differ (here: round-half-down nearest, per-tap constant fill), and the
@@ -224,7 +234,7 @@ def child_matrices_from_params(gates, p4, sy, sx, theta_deg, shear_deg, t, snap_
     a = mat2(cos, -sin, sin, cos) @ mat2(one, zero, torch.tan(shear), one) @ mat2(sy, zero, zero, sx)
     det = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
     inv = mat2(a[:, 1, 1], -a[:, 0, 1], -a[:, 1, 0], a[:, 0, 0]) / det[:, None, None]
-    c = torch.tensor([(h - 1) / 2.0, (w - 1) / 2.0], dtype=f32, device=sy.device)
+    c = torch.stack([torch.full_like(ty, (h - 1) / 2.0), torch.full_like(tx, (w - 1) / 2.0)], -1)
     shift = c + torch.stack([ty, tx], -1)
     # input = inv @ (out - shift) + c, as one homogeneous matrix
     trans = c - (inv @ shift[:, :, None])[:, :, 0]
@@ -389,34 +399,501 @@ def _warp_one(img, M, disp, order: int, cval, mode=None, snap=None, nn=None):
 
 
 # --------------------------------------------------------------------- #
-# the light family: draws, then arithmetic
-def _check_light_family(cfg: AugmentConfig) -> None:
-    off = (cfg.intensity_gate, cfg.superpixels_prob, cfg.elastic_prob, cfg.piecewise_prob, cfg.perspective_prob)
-    if cfg.someof_n > 0 or any(p > 0 for p in off):
-        raise NotImplementedError(
-            "only the light augmentation family is ported (someof_n == 0, no intensity, elastic, "
-            "piecewise or perspective entries); the heavy and medium pipelines are ROADMAP Queue 1 item 9"
-        )
+# intensity family: each op takes a batch of images (N, H, W, C) in [0, 255]
+# and its per-sample parameters as (N, ...) tensors
+def _edge_index(n: int, r: int, device):
+    """Indices of an edge (replicate) pad by ``r`` on each side."""
+    return torch.clamp(torch.arange(-r, n + r, device=device), 0, n - 1)
 
 
+def _reflect_index(n: int, device):
+    """Indices of a reflect pad by 1 (``np.pad`` mode="reflect": abcba)."""
+    i = torch.arange(-1, n + 1, device=device).abs()
+    return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
+def _separable(img, wgt, r: int):
+    """Separable filter with per-sample taps ``wgt`` (N, 2r+1) and edge
+    padding: rows first, then columns, each a sum of shifted products in tap
+    order (as the JAX package sums them)."""
+    n, h, w, _ = img.shape
+    wgt = wgt[:, :, None, None, None]
+    o = img[:, _edge_index(h, r, img.device)]
+    out = 0.0
+    for i in range(2 * r + 1):
+        out = out + wgt[:, i] * o[:, i:i + h]
+    o = out[:, :, _edge_index(w, r, img.device)]
+    out = 0.0
+    for i in range(2 * r + 1):
+        out = out + wgt[:, i] * o[:, :, i:i + w]
+    return out
+
+
+def _gaussian_blur(img, sigma, max_radius: int = 5):
+    """Separable gaussian with per-sample ``sigma`` (N,): a static kernel
+    width, the weights exp(-x^2 / 2 sigma^2) normalised."""
+    x = torch.arange(-max_radius, max_radius + 1, dtype=torch.float32, device=img.device)
+    sig = torch.clamp(sigma.to(torch.float32), min=1e-3)[:, None]
+    k = torch.exp(-0.5 * (x / sig) ** 2)
+    return _separable(img, k / k.sum(-1, keepdim=True), max_radius)
+
+
+def _avg_blur(img, k):
+    """Separable box blur with per-sample width ``k`` (N,) in [1, 7]
+    (iaa.AverageBlur). Even widths use half-weighted edge taps (the average of
+    the two centred odd boxes)."""
+    offs = torch.arange(-3, 4, dtype=torch.float32, device=img.device)
+    half = (k.to(torch.float32)[:, None] - 1.0) / 2.0
+    wgt = torch.clamp(half - offs.abs() + 1.0, 0.0, 1.0)
+    return _separable(img, wgt / wgt.sum(-1, keepdim=True), 3)
+
+
+def _median_blur(img, k):
+    """Integer median filter with per-sample ODD ``k`` (N,) in [1, 11]
+    (iaa.MedianBlur), edge padding; the input is rounded half to even and
+    clipped to [0, 255] first (imgaug's uint8 round trip).
+
+    Every pixel's 11 x 11 window is unfolded into 121 uint8 taps. The
+    121 - k^2 taps outside the k x k window (an even number) are replaced,
+    half by 0 and half by 255; the middle of the 121 sorted values is then the
+    median of the k^2 taps that count. The answer is an integer, bit-equal to
+    the JAX package's bit descent."""
+    n, h, w, c = img.shape
+    r = 5
+    dev = img.device
+    x = torch.clamp(torch.round(img), 0.0, 255.0).to(torch.uint8)
+    xp = x[:, _edge_index(h, r, dev)][:, :, _edge_index(w, r, dev)]
+    taps = xp.unfold(1, 2 * r + 1, 1).unfold(2, 2 * r + 1, 1)  # (n, h, w, c, 11, 11) view
+    taps = taps.reshape(n, h, w, c, (2 * r + 1) ** 2)
+    d = torch.arange(-r, r + 1, device=dev)
+    ring = torch.maximum(d[:, None].abs(), d[None, :].abs()).reshape(-1)  # (121,) Chebyshev distance
+    outside = ring[None] > ((k.to(torch.int64) - 1) // 2)[:, None]  # (n, 121)
+    rank = torch.cumsum(outside.to(torch.int64), dim=1) - 1
+    fill = torch.where(rank % 2 == 0, 0, 255).to(torch.uint8)
+    taps = torch.where(outside[:, None, None, None], fill[:, None, None, None], taps)
+    return taps.median(dim=-1).values.to(torch.float32)
+
+
+def _conv3(img, kernel):
+    """3x3 per-sample ``kernel`` (N, 3, 3) over every channel, reflect
+    padding (cv2 filter2D)."""
+    n, h, w, _ = img.shape
+    x = img[:, _reflect_index(h, img.device)][:, :, _reflect_index(w, img.device)]
+    kernel = kernel[..., None, None, None]
+    out = 0.0
+    for dy in range(3):
+        for dx in range(3):
+            out = out + kernel[:, dy, dx] * x[:, dy:dy + h, dx:dx + w]
+    return out
+
+
+def _kernel3(rows, like):
+    """A (N, 3, 3) kernel from nested lists of (N,) tensors and floats
+    (``like``: an (N,) tensor on the device)."""
+    return torch.stack([torch.stack([v if torch.is_tensor(v) else torch.full_like(like, v) for v in row], -1)
+                        for row in rows], -2)
+
+
+def _blend3(alpha, eff):
+    """(1 - alpha) * identity + alpha * ``eff``, per sample."""
+    ident = _kernel3([[0.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 0.0]], alpha)
+    a = alpha[:, None, None]
+    return (1.0 - a) * ident + a * eff
+
+
+def _sharpen(img, alpha, lightness):
+    """iaa.Sharpen: blend identity with [[-1,-1,-1],[-1,8+l,-1],[-1,-1,-1]]."""
+    return _conv3(img, _blend3(alpha, _kernel3([[-1.0, -1.0, -1.0], [-1.0, 8.0 + lightness, -1.0],
+                                                 [-1.0, -1.0, -1.0]], alpha)))
+
+
+def _emboss(img, alpha, strength):
+    """iaa.Emboss: blend identity with the diagonal relief kernel."""
+    s = strength
+    return _conv3(img, _blend3(alpha, _kernel3([[-1.0 - s, -s, 0.0], [-s, 1.0, s], [0.0, s, 1.0 + s]], s)))
+
+
+def _directed_edge_kernel(direction):
+    """(N, 3, 3) ``iaa.DirectedEdgeDetect`` effect matrices for ``direction``
+    (N,) ~ U(0, 1) (0 = from the top, clockwise): the angle quantised to whole
+    degrees, each of the 8 neighbours weighted by (1 - angle between/180)^4,
+    the weights normalised and negated, the centre set to 1."""
+    deg = torch.remainder(torch.floor(direction * 360.0), 360.0)
+    rad = torch.deg2rad(deg) - 0.5 * torch.pi
+    dx, dy = torch.cos(rad)[:, None, None], torch.sin(rad)[:, None, None]
+    offs = torch.arange(-1.0, 2.0, device=direction.device)
+    gy, gx = torch.meshgrid(offs, offs, indexing="ij")  # [y+1, x+1] cell (x, y)
+    norm = torch.sqrt(gx * gx + gy * gy)
+    cosang = torch.clamp((gx * dx + gy * dy) / torch.where(norm == 0, 1.0, norm), -1.0, 1.0)
+    sim = (1.0 - torch.arccos(cosang) / torch.pi) ** 4
+    centre = (gx == 0) & (gy == 0)
+    sim = torch.where(centre, 0.0, sim)
+    m = -sim / sim.sum((-2, -1), keepdim=True)
+    return torch.where(centre, 1.0, m)
+
+
+_PERLIN_G = 16  # max lattice cells across a dimension (imgaug size_px_max hi)
+
+
+def _fade(t):
+    return t * t * t * (t * (t * 6.0 - 15.0) + 10.0)
+
+
+def _perlin_eval_sep(theta, u, v):
+    """Perlin noise on a separable grid, per sample: ``theta`` (N, S, S)
+    gradient angles (the unit gradient at lattice node (i, j) is
+    (sin, cos)), ``u`` (N, h) row lattice coordinates, ``v`` (N, w) column
+    coordinates -> (N, h, w): the quintic-fade bilinear blend of the four
+    corner gradient . offset dots."""
+    i0, j0 = torch.floor(u), torch.floor(v)
+    fu, fv = (u - i0)[:, :, None], (v - j0)[:, None, :]
+    i0, j0 = i0.to(torch.int64), j0.to(torch.int64)
+    sin_t, cos_t = torch.sin(theta), torch.cos(theta)
+    item = torch.arange(theta.shape[0], device=theta.device)[:, None, None]
+
+    def grad_dot(di, dj):
+        rows, cols = (i0 + di)[:, :, None], (j0 + dj)[:, None, :]
+        return sin_t[item, rows, cols] * (fu - di) + cos_t[item, rows, cols] * (fv - dj)
+
+    wu, wv = _fade(fu), _fade(fv)
+    n0 = grad_dot(0, 0) * (1 - wv) + grad_dot(0, 1) * wv
+    n1 = grad_dot(1, 0) * (1 - wv) + grad_dot(1, 1) * wv
+    return n0 * (1 - wu) + n1 * wu
+
+
+def _perlin_mask(n_iter, g, nearest, theta, thresh, h: int, w: int):
+    """Gradient-noise alpha masks (N, h, w) in [0, 1], the imgaug
+    SimplexNoiseAlpha recipe: per octave i < ``n_iter`` (N,) in 1..3, a noise
+    layer of ``g`` (N, 3) lattice cells across, sampled continuously or, where
+    ``nearest`` (N, 3), at the lattice's raster centres, from the angle
+    lattices ``theta`` (N, 3, S, S); the octaves aggregated by max; sigmoid
+    shaping with the threshold ``thresh`` (N,) ~ N(0, 5)."""
+    dev = theta.device
+    yy = torch.arange(h, dtype=torch.float32, device=dev)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)
+    mask = torch.zeros((theta.shape[0], h, w), dtype=torch.float32, device=dev)
+    for i in range(3):
+        gi = g[:, i].to(torch.float32)[:, None]
+        u, v = yy * (gi / h), xx * (gi / w)
+        near = nearest[:, i, None]
+        u = torch.where(near, torch.floor(u) + 0.5, u)
+        v = torch.where(near, torch.floor(v) + 0.5, v)
+        val = _perlin_eval_sep(theta[:, i], u, v)  # ~[-0.707, 0.707]
+        octave = torch.clamp(0.5 + val * (0.5 / 0.70710678), 0.0, 1.0)
+        mask = torch.maximum(mask, torch.where((i < n_iter)[:, None, None], octave, 0.0))
+    return torch.sigmoid(20.0 * (mask - 0.5) + thresh[:, None, None])
+
+
+def _simplex_edge(img, alpha, directed, direction, perlin):
+    """iaa.SimplexNoiseAlpha(OneOf(EdgeDetect, DirectedEdgeDetect)): the
+    laplacian or, where ``directed``, the direction-weighted kernel, blended
+    with identity by ``alpha``; the result clipped and mixed into the image
+    through the Perlin mask (``perlin``: the arguments of
+    :func:`_perlin_mask`)."""
+    _, h, w, _ = img.shape
+    lap = _kernel3([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], alpha)
+    eff = torch.where(directed[:, None, None], _directed_edge_kernel(direction), lap)
+    edged = torch.clamp(_conv3(img, _blend3(alpha, eff)), 0.0, 255.0)
+    mask = _perlin_mask(*perlin, h, w)[..., None]
+    return mask * edged + (1.0 - mask) * img
+
+
+def _rgb_to_hsv(img):
+    """cv2 8-bit convention: H in [0, 180), S/V in [0, 255]. Channel 0 is
+    read as red, as the JAX package reads it."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    v = torch.maximum(torch.maximum(r, g), b)
+    mn = torch.minimum(torch.minimum(r, g), b)
+    d = v - mn
+    safe = torch.where(d > 0, d, 1.0)
+    hr = 30.0 * (g - b) / safe
+    hg = 60.0 + 30.0 * (b - r) / safe
+    hb = 120.0 + 30.0 * (r - g) / safe
+    hue = torch.where(v == r, hr, torch.where(v == g, hg, hb))
+    hue = torch.where(d > 0, torch.remainder(hue, 180.0), 0.0)
+    sat = torch.where(v > 0, 255.0 * d / torch.where(v > 0, v, 1.0), 0.0)
+    return torch.stack([hue, sat, v], dim=-1)
+
+
+def _hsv_to_rgb(hsv):
+    hue, sat, v = hsv[..., 0], hsv[..., 1] / 255.0, hsv[..., 2]
+    hp = torch.remainder(hue, 180.0) / 30.0  # sector in [0, 6)
+    i = torch.floor(hp)
+    f = hp - i
+    p = v * (1.0 - sat)
+    q = v * (1.0 - sat * f)
+    t = v * (1.0 - sat * (1.0 - f))
+    i = i.to(torch.int32)
+    conds = [i == 0, i == 1, i == 2, i == 3, i == 4]
+    r = _select(conds, [v, q, p, p, t], v)
+    g = _select(conds, [t, v, v, q, p], p)
+    b = _select(conds, [p, p, t, v, v], q)
+    return torch.stack([r, g, b], dim=-1)
+
+
+def _add_hue_sat(img, val):
+    """iaa.AddToHueAndSaturation: one value per sample ``val`` (N,) added to
+    H (wrapping) and S (clipped) in cv2 HSV space."""
+    hsv = _rgb_to_hsv(img)
+    val = val[:, None, None]
+    hue = torch.remainder(hsv[..., 0] + val, 180.0)
+    sat = torch.clamp(hsv[..., 1] + val, 0.0, 255.0)
+    return torch.clamp(_hsv_to_rgb(torch.stack([hue, sat, hsv[..., 2]], -1)), 0.0, 255.0)
+
+
+def _resize_linear_weights(n_in: int, n_out: int, device):
+    """(n_out, n_in) weights of ``jax.image.resize(..., "linear")`` along one
+    axis: a triangle kernel at sample positions (i + 0.5) / scale - 0.5,
+    widened by 1/scale when downsampling (antialiasing), normalised over the
+    taps inside the input, zero where a sample lies outside it."""
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0)
+    sample_f = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.0 - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]) / kernel_scale
+    wgt = torch.clamp(1.0 - x.abs(), min=0.0)
+    total = wgt.sum(0, keepdim=True)
+    eps = float(torch.finfo(torch.float32).eps)
+    wgt = torch.where(total.abs() > 1000.0 * eps, wgt / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return torch.where(inside[None, :], wgt, 0.0).T.contiguous()
+
+
+def _resize_linear(x, h: int, w: int):
+    """(N, H0, W0, C) -> (N, h, w, C) as ``jax.image.resize(..., "linear")``."""
+    _, h0, w0, _ = x.shape
+    if h != h0:
+        x = torch.einsum("yh,nhwc->nywc", _resize_linear_weights(h0, h, x.device), x)
+    if w != w0:
+        x = torch.einsum("xw,nywc->nyxc", _resize_linear_weights(w0, w, x.device), x)
+    return x
+
+
+def _nearest_index(n_in: int, n_out: int, device):
+    """Source index of each output of ``jax.image.resize(..., "nearest")``:
+    floor((i + 0.5) * n_in / n_out) in float32."""
+    return torch.floor((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in / n_out).to(torch.int64)
+
+
+_SP_K = 200  # static centre count (n_segments upper bound)
+
+
+def _superpixel_size(h: int, w: int):
+    """Internal resolution of the superpixels (imgaug's ``max_size=128``)."""
+    factor = max(1, -(-max(h, w) // 128))
+    return factor, h // factor, w // factor
+
+
+def _superpixels(img, n, ys, xs, p_rep, u_rep):
+    """iaa.Superpixels(p_replace=(0,1), n_segments=(20,200)) via a k-means
+    SLIC approximation at <=128 px, per sample: ``n`` (N,) live centres of
+    200, seeded at pixels ``ys``, ``xs`` (N, 200) of the downscaled image;
+    compactness m=10 on dc^2 + (m/S)^2 ds^2; two refinements; each segment's
+    pixels replaced by the segment mean where ``u_rep`` (N, 200) < ``p_rep``
+    (N,). Per-segment sums are one-hot matrix products: deterministic."""
+    nb, h, w, c = img.shape
+    dev = img.device
+    factor, hs, ws = _superpixel_size(h, w)
+    small = _resize_linear(img, hs, ws) if factor > 1 else img
+    active = torch.arange(_SP_K, device=dev)[None] < n[:, None]  # (N, K)
+    spatial_w = 10.0 / torch.sqrt(hs * ws / n.to(torch.float32))  # m / S, (N,)
+    yy = torch.arange(hs, dtype=torch.float32, device=dev)[:, None].expand(hs, ws).reshape(1, -1, 1)
+    xx = torch.arange(ws, dtype=torch.float32, device=dev)[None, :].expand(hs, ws).reshape(1, -1, 1)
+    sw = spatial_w[:, None, None]
+    flat = small.reshape(nb, hs * ws, c)
+    feats = torch.cat([flat / 255.0, yy * sw, xx * sw], dim=2)  # (N, P, c+2)
+    item = torch.arange(nb, device=dev)[:, None]
+    centers = torch.cat([small[item, ys, xs] / 255.0, ys[..., None].to(torch.float32) * sw,
+                         xs[..., None].to(torch.float32) * sw], dim=2)  # (N, K, c+2)
+    ff = torch.sum(feats * feats, 2, keepdim=True)
+
+    def assign(centers):
+        d = ff - (2.0 * feats) @ centers.transpose(1, 2) + torch.sum(centers * centers, 2)[:, None]
+        d = torch.where(active[:, None], d, 1e9)
+        return (torch.argmin(d, dim=2)[..., None] == torch.arange(_SP_K, device=dev)).to(torch.float32)
+
+    onehot = assign(centers)
+    ones = torch.ones((nb, hs * ws, 1), dtype=torch.float32, device=dev)
+    feats1 = torch.cat([feats, ones], 2)
+    for _ in range(2):  # k-means refinement
+        sums = onehot.transpose(1, 2) @ feats1
+        centers = sums[..., :-1] / torch.clamp(sums[..., -1:], min=1.0)
+        onehot = assign(centers)
+    mean_col = onehot.transpose(1, 2) @ torch.cat([flat, ones], 2)
+    mean_col = mean_col[..., :c] / torch.clamp(mean_col[..., -1:], min=1.0)  # (N, K, c)
+    rep = (u_rep < p_rep[:, None]).to(torch.float32)
+    # the per-pixel lookup as one more product at the small resolution,
+    # upsampled nearest afterwards
+    looked = (onehot @ torch.cat([mean_col, rep[..., None]], 2)).reshape(nb, hs, ws, c + 1)
+    if factor > 1:
+        looked = looked[:, _nearest_index(hs, h, dev)][:, :, _nearest_index(ws, w, dev)]
+    return torch.where(looked[..., c:] > 0.5, looked[..., :c], img)
+
+
+def _dropout(img, p, drop_u, p2, size_u, coarse_u, fine):
+    """OneOf{Dropout(p), CoarseDropout(p2, size_percent)}: ``fine`` (N,)
+    picks the pixel dropout (keep where ``drop_u`` (N, H, W, C) >= ``p``),
+    else the coarse one: a keep-mask raster of ``coarse_u`` (N, Gh, Gw, C) at
+    the sampled granularity round(``size_u`` * (h, w)), clipped to [2, G]."""
+    _, h, w, _ = img.shape
+    dev = img.device
+    pixel = img * (drop_u >= p[:, None, None, None]).to(img.dtype)
+    gmax_h, gmax_w = coarse_u.shape[1:3]
+    gh = torch.clamp(torch.round(size_u * h), 2, gmax_h)
+    gw = torch.clamp(torch.round(size_u * w), 2, gmax_w)
+    iy = (torch.arange(h, dtype=torch.float32, device=dev) * gh[:, None] / h).to(torch.int64)
+    ix = (torch.arange(w, dtype=torch.float32, device=dev) * gw[:, None] / w).to(torch.int64)
+    keep = (coarse_u >= p2[:, None, None, None]).to(img.dtype)
+    item = torch.arange(img.shape[0], device=dev)[:, None, None]
+    coarse = img * keep[item, iy[:, :, None], ix[:, None, :]]
+    return torch.where(fine[:, None, None, None], pixel, coarse)
+
+
+def _coarse_grid(cfg: "AugmentConfig", h: int, w: int):
+    """The static raster of the coarse-dropout keep-mask (5% of the image)."""
+    return max(2, int(cfg.coarse_size[1] * h) + 1), max(2, int(cfg.coarse_size[1] * w) + 1)
+
+
+# The twelve intensity entries of the SomeOf list, in the reference's order:
+# (name, its draws, fn(images, *draws) -> images). The blur entry is split by
+# its OneOf choice into three ops.
+def _hue_or_identity(img, val):
+    return _add_hue_sat(img, val) if img.shape[-1] == 3 else img
+
+
+_OPS = {
+    "superpixels": (("sp_n", "sp_ys", "sp_xs", "sp_p", "sp_u"), _superpixels),
+    "gaussian_blur": (("blur_sigma",), _gaussian_blur),
+    "average_blur": (("avg_k",), _avg_blur),
+    "median_blur": (("median_k",), _median_blur),
+    "sharpen": (("sharpen_alpha", "sharpen_lightness"), _sharpen),
+    "emboss": (("emboss_alpha", "emboss_strength"), _emboss),
+    "simplex_edge": (("edge_alpha", "edge_directed", "edge_direction", "perlin_n", "perlin_g", "perlin_nearest",
+                      "perlin_theta", "perlin_thresh"),
+                     lambda im, a, d, dr, *perlin: _simplex_edge(im, a, d, dr, perlin)),
+    "noise": (("noise_scale", "noise"), lambda im, s, z: im + z * s[:, None, None, None]),
+    "dropout": (("drop_p", "drop_u", "coarse_p", "coarse_size", "coarse_u", "drop_fine"), _dropout),
+    "invert": (("invert_ch",), lambda im, inv: torch.where(inv[:, None, None, :], 255.0 - im, im)),
+    "add": (("add",), lambda im, v: im + v[:, None, None, :]),
+    "hue_saturation": (("hue",), _hue_or_identity),
+    "multiply": (("multiply",), lambda im, v: im * v[:, None, None, :]),
+    "grayscale": (("gray_alpha",),
+                  lambda im, a: im + a[:, None, None, None] * (torch.mean(im, -1, keepdim=True) - im)),
+}
+ENTRIES = ("superpixels", "blur", "sharpen", "emboss", "simplex_edge", "noise", "dropout", "invert", "add",
+           "hue_saturation", "multiply", "grayscale")
+BLURS = ("gaussian_blur", "average_blur", "median_blur")  # the blur entry's OneOf, by its choice 0, 1, 2
+MEMBERS = ENTRIES + ("elastic", "piecewise", "perspective")  # the 15 SomeOf members of the heavy pipeline
+_WRAPPED = (0, 12, 13, 14)  # the members inside Sometimes(0.5)
+
+
+def apply_op(name: str, images, draws):
+    """One intensity op on every image of ``images``, with the draws of the
+    same samples."""
+    keys, fn = _OPS[name]
+    return fn(images, *(draws[k] for k in keys))
+
+
+# --------------------------------------------------------------------- #
+# the SomeOf geometry members: a homography and a displacement field
+def perspective_from_params(gate, scale, jitter, h: int, w: int):
+    """iaa.PerspectiveTransform per sample: the inverse homography (B, 3, 3)
+    sending the output corners to corners jittered by ``jitter`` (B, 4, 2)
+    ~ N(0, 1) times ``scale`` (B,) times (h, w), where ``gate`` (B,); a DLT on
+    4 points, solved as (A + 1e-8 I) h = b. ``torch.linalg.solve_ex`` does not
+    check for a singular system, which would wait for the device."""
+    f32 = torch.float32
+    dev = jitter.device
+    b = jitter.shape[0]
+    jit = jitter.to(f32) * scale.to(f32)[:, None, None]
+    jit = torch.where(gate[:, None, None], torch.stack([jit[..., 0] * float(h), jit[..., 1] * float(w)], -1), 0.0)
+    corner = torch.arange(4, device=dev)  # (0, 0), (0, w-1), (h-1, 0), (h-1, w-1)
+    y = ((corner // 2).to(f32) * (h - 1.0)).expand(b, 4)
+    x = ((corner % 2).to(f32) * (w - 1.0)).expand(b, 4)
+    u, v = y + jit[..., 0], x + jit[..., 1]  # the jittered input corners
+    one, zero = torch.ones_like(u), torch.zeros_like(u)
+    row_u = torch.stack([y, x, one, zero, zero, zero, -u * y, -u * x], -1)  # (B, 4, 8)
+    row_v = torch.stack([zero, zero, zero, y, x, one, -v * y, -v * x], -1)
+    a = torch.stack([row_u, row_v], 2).reshape(b, 8, 8)
+    rhs = torch.stack([u, v], 2).reshape(b, 8)
+    hvec, _ = torch.linalg.solve_ex(a + 1e-8 * torch.eye(8, device=dev), rhs)
+    return torch.cat([hvec, torch.ones((b, 1), dtype=f32, device=dev)], 1).reshape(b, 3, 3)
+
+
+def piecewise_field(grid, scale, h: int, w: int):
+    """iaa.PiecewiseAffine's induced smooth field: the (B, 4, 4, 2) control
+    grid ~ N(0, 1) upsampled ``linear`` to (h, w) and scaled by
+    ``scale`` (B,) times (h, w)."""
+    coarse = _resize_linear(grid.to(torch.float32), h, w) * scale.to(torch.float32)[:, None, None, None]
+    return torch.stack([coarse[..., 0] * float(h), coarse[..., 1] * float(w)], -1)
+
+
+# --------------------------------------------------------------------- #
+# draws, then arithmetic
 def _uniform(generator, lo_hi, shape, device):
     lo, hi = lo_hi
     return lo + torch.rand(shape, generator=generator, device=device) * (hi - lo)
 
 
+def _legacy_probs(cfg: AugmentConfig):
+    """Independent per-member gates of the legacy mode (``someof_n == 0``),
+    indexed as :data:`MEMBERS`."""
+    g = cfg.intensity_gate
+    return ([cfg.superpixels_prob] + [g] * 6 + [g if cfg.invert_prob > 0 else 0.0] + [g] * 4
+            + [cfg.elastic_prob, cfg.piecewise_prob, cfg.perspective_prob])
+
+
+def live_members(cfg: AugmentConfig):
+    """Indices into :data:`MEMBERS` of the members that can fire: the first
+    ``someof_n`` by the SomeOf draw; in the legacy mode (``someof_n == 0``)
+    the intensity entries whose gate is not 0; the geometry members beyond
+    ``someof_n`` whose own gate is not 0."""
+    probs = _legacy_probs(cfg)
+    n = cfg.someof_n
+    return [i for i in range(15) if i < n or (probs[i] > 0 and (n == 0 or i >= 12))]
+
+
+def _host_generator(generator, host_generator):
+    if host_generator is not None:
+        return host_generator
+    if generator.device.type == "cpu":
+        return generator
+    raise ValueError("the heavy, medium and legacy pipelines decide the order and the members that fire on the host: "
+                     "pass host_generator, a torch.Generator on the CPU")
+
+
 @torch.no_grad()
-def sample_draws(generator: torch.Generator, cfg: AugmentConfig, b: int, device) -> Dict[str, Optional[torch.Tensor]]:
-    """Every random number one call of the light family needs, for a batch of
-    ``b`` images: the per-batch order of the five outer children, and per
-    sample the four gates, the children's raw parameters (see
+def sample_draws(generator: torch.Generator, cfg: AugmentConfig, b: int, device, shape=None,
+                 host_generator: Optional[torch.Generator] = None) -> Dict[str, Optional[torch.Tensor]]:
+    """Every random number one call of the pipeline ``cfg`` needs, for a batch
+    of ``b`` images of ``shape`` (H, W, C).
+
+    The outer children's: the per-batch order of the five outer children,
+    and per sample the four gates, the children's raw parameters (see
     :func:`child_matrices_from_params`), the fill value ``cval`` ~ U(0, 255)
-    and, under ``border_mode_all``, the border ``mode`` ~ U{0..4}."""
-    u = lambda *shape: torch.rand(shape, generator=generator, device=device)  # noqa: E731
-    probs = torch.tensor([cfg.fliplr, cfg.flipud, cfg.croppad_prob, cfg.affine_prob], device=device)
+    and, under ``border_mode_all``, the border ``mode`` ~ U{0..4}. The light
+    family needs nothing more, and ``shape`` may be omitted for it.
+
+    Where a SomeOf member or a legacy gate can fire, also: on the CPU, from
+    ``host_generator`` (default: ``generator`` when that lives on the CPU),
+    the decisions the host needs to order the work without waiting for the
+    device -- ``order5`` (then drawn here instead), ``perm12`` (the
+    intensity entries' per-batch order), ``coin`` (the intensity block's
+    side when it falls between the warp children), ``active`` (B, 15) (the
+    members that fire: exactly k ~ U{someof_count} of ``someof_n`` by a rank
+    draw, thinned by the Sometimes(0.5) coin on members 0, 12, 13, 14; in
+    the legacy mode independent gates) and ``blur_choice`` (B,) (the blur
+    OneOf); and on ``device`` each live member's parameters, the per-channel
+    or shared forms already resolved (see :data:`_OPS`)."""
+    u = lambda *s: torch.rand(s, generator=generator, device=device)  # noqa: E731
+    live = live_members(cfg)
+    host = _host_generator(generator, host_generator) if live else None
+    order5 = torch.randperm(5, generator=host if cfg.someof_n > 0 else generator, device="cpu" if cfg.someof_n > 0 else device)
+    gates = u(b, 4)
+    probs = (cfg.fliplr, cfg.flipud, cfg.croppad_prob, cfg.affine_prob)
     tx_range = cfg.translate_x if cfg.translate_x is not None else cfg.translate
-    return {
-        "order5": torch.randperm(5, generator=generator, device=device),
-        "gates": u(b, 4) < probs,
+    d = {
+        "order5": order5,
+        "gates": torch.stack([gates[:, j] < p for j, p in enumerate(probs)], dim=-1),
         "p4": _uniform(generator, cfg.croppad, (b, 4), device),
         "sy": _uniform(generator, cfg.scale, (b,), device),
         "sx": _uniform(generator, cfg.scale, (b,), device),
@@ -431,57 +908,221 @@ def sample_draws(generator: torch.Generator, cfg: AugmentConfig, b: int, device)
         if cfg.border_mode_all
         else None,
     }
+    if not live:
+        return d
+    d.update(_sample_host_draws(host, cfg, b))
+    h, w, c = shape
+    d.update(_sample_member_draws(generator, cfg, live, b, h, w, c, device))
+    return d
+
+
+def _sample_host_draws(host: torch.Generator, cfg: AugmentConfig, b: int):
+    hu = lambda *s: torch.rand(s, generator=host)  # noqa: E731
+    if cfg.someof_n > 0:
+        n = cfg.someof_n
+        k = torch.randint(cfg.someof_count[0], cfg.someof_count[1] + 1, (b, 1), generator=host)
+        ranks = torch.argsort(torch.argsort(hu(b, n), dim=1), dim=1)
+        active = torch.zeros((b, 15), dtype=torch.bool)
+        active[:, :n] = ranks < k
+        coin = hu(b, len(_WRAPPED)) < cfg.sometimes_p
+        active[:, list(_WRAPPED)] &= coin
+        for j in range(max(n, 12), 15):  # a geometry member outside the SomeOf list keeps its own gate
+            active[:, j] = hu(b) < _legacy_probs(cfg)[j]
+    else:
+        active = hu(b, 15) < torch.tensor(_legacy_probs(cfg))
+    return {
+        "perm12": torch.randperm(12, generator=host),
+        "coin": hu() < 0.5,
+        "active": active,
+        "blur_choice": torch.randint(0, 3, (b,), generator=host),
+    }
+
+
+def _sample_member_draws(generator, cfg: AugmentConfig, live, b: int, h: int, w: int, c: int, device):
+    u = lambda *s: torch.rand(s, generator=generator, device=device)  # noqa: E731
+    normal = lambda *s: torch.randn(s, generator=generator, device=device)  # noqa: E731
+    rint = lambda lo, hi, *s: torch.randint(lo, hi, s, generator=generator, device=device)  # noqa: E731
+    rng = lambda lo_hi, *s: _uniform(generator, lo_hi, s, device)  # noqa: E731
+
+    def per_channel(p_channel, pc, sh):
+        """The per-channel draw where a sample's coin came up, else the shared one."""
+        return torch.where((u(b) < p_channel).reshape(-1, *([1] * (pc.dim() - 1))), pc, sh)
+
+    d = {}
+    if 0 in live:
+        _, hs, ws = _superpixel_size(h, w)
+        d.update(sp_n=rint(cfg.superpixels_segments[0], cfg.superpixels_segments[1] + 1, b),
+                 sp_ys=rint(0, hs, b, _SP_K), sp_xs=rint(0, ws, b, _SP_K),
+                 sp_p=rng(cfg.superpixels_replace, b), sp_u=u(b, _SP_K))
+    if 1 in live:
+        lo, hi = cfg.median_blur_k
+        d.update(blur_sigma=rng(cfg.blur_sigma, b), avg_k=rint(cfg.avg_blur_k[0], cfg.avg_blur_k[1] + 1, b),
+                 median_k=2 * rint(lo // 2, hi // 2 + 1, b) + 1)
+    if 2 in live:
+        d.update(sharpen_alpha=rng(cfg.sharpen_alpha, b), sharpen_lightness=rng(cfg.sharpen_lightness, b))
+    if 3 in live:
+        d.update(emboss_alpha=rng(cfg.emboss_alpha, b), emboss_strength=rng(cfg.emboss_strength, b))
+    if 4 in live:
+        side = _PERLIN_G + 2
+        d.update(edge_alpha=rng(cfg.edge_alpha, b), edge_directed=u(b) < 0.5, edge_direction=u(b),
+                 perlin_n=rint(1, 4, b), perlin_g=rint(2, _PERLIN_G + 1, b, 3), perlin_nearest=u(b, 3) < 0.5,
+                 perlin_theta=u(b, 3, side, side) * (2.0 * torch.pi), perlin_thresh=normal(b) * 5.0)
+    if 5 in live:
+        d.update(noise_scale=rng(cfg.noise_scale, b), noise=per_channel(0.5, normal(b, h, w, c), normal(b, h, w, 1)))
+    if 6 in live:
+        gh, gw = _coarse_grid(cfg, h, w)
+        d.update(drop_p=rng(cfg.dropout, b), drop_u=per_channel(0.5, u(b, h, w, c), u(b, h, w, 1)),
+                 coarse_p=rng(cfg.coarse_dropout, b), coarse_size=rng(cfg.coarse_size, b),
+                 coarse_u=per_channel(0.2, u(b, gh, gw, c), u(b, gh, gw, 1)), drop_fine=u(b) < 0.5)
+    if 7 in live:
+        d.update(invert_ch=u(b, c) < cfg.invert_prob)
+    if 8 in live:
+        d.update(add=per_channel(0.5, rng(cfg.add, b, c), rng(cfg.add, b, 1)))
+    if 9 in live:
+        d.update(hue=rng(cfg.hue_sat, b))
+    if 10 in live:
+        d.update(multiply=per_channel(0.5, rng(cfg.multiply, b, c), rng(cfg.multiply, b, 1)))
+    if 11 in live:
+        d.update(gray_alpha=rng(cfg.grayscale_alpha, b))
+    if 12 in live:
+        d.update(elastic_alpha=rng(cfg.elastic_alpha, b), elastic_field=rng((-1.0, 1.0), b, h, w, 2))
+    if 13 in live:
+        d.update(pw_scale=rng(cfg.piecewise_scale, b), pw_grid=normal(b, 4, 4, 2))
+    if 14 in live:
+        d.update(persp_scale=rng(cfg.perspective_scale, b), persp_jitter=normal(b, 4, 2))
+    return d
+
+
+def _host(draws, key):
+    t = draws[key]
+    if t.device.type != "cpu":
+        raise ValueError(f"draws[{key!r}] must lie on the CPU: the host orders the work by it")
+    return t
+
+
+def _to_device(parts, device):
+    """CPU int64 vectors -> the same on ``device``, in one non-blocking copy
+    from pinned memory (a blocking copy would wait for the queued work)."""
+    if device.type == "cpu" or not parts:
+        return parts
+    flat = torch.cat(parts).pin_memory().to(device, non_blocking=True)
+    return list(torch.split(flat, [len(p) for p in parts]))
+
+
+def _plan(draws, order, device):
+    """The intensity block as (op, sample indices on ``device``) in
+    application order, from the host's ``active`` flags and blur choices:
+    each op runs on the samples that take it and no others; and the device
+    copy of the geometry members' gates (B, 3)."""
+    active, choice = _host(draws, "active"), _host(draws, "blur_choice")
+    steps = []
+    for i in order:
+        if i == 1:
+            steps += [(BLURS[j], torch.nonzero(active[:, 1] & (choice == j))[:, 0]) for j in range(3)]
+        else:
+            steps.append((ENTRIES[i], torch.nonzero(active[:, i])[:, 0]))
+    steps = [(name, idx) for name, idx in steps if len(idx)]
+    moved = _to_device([idx for _, idx in steps] + [active[:, 12:].reshape(-1).to(torch.int64)], device)
+    return [(name, idx) for (name, _), idx in zip(steps, moved[:-1])], moved[-1].reshape(-1, 3).to(torch.bool)
+
+
+def apply_intensity(images, draws, steps):
+    """Run the planned ops in order, each on its samples only (an op's result
+    for a sample depends on that sample alone), then clip to [0, 255]."""
+    for name, idx in steps:
+        part = apply_op(name, images.index_select(0, idx), {k: draws[k].index_select(0, idx) for k in _OPS[name][0]})
+        images = images.index_copy(0, idx, part)
+    return torch.clamp(images, 0.0, 255.0)
 
 
 @torch.no_grad()
 def augment_from_draws(cfg: AugmentConfig, images, masks, draws):
-    """The light family's arithmetic on the draws of :func:`sample_draws`:
+    """The pipeline's arithmetic on the draws of :func:`sample_draws`:
     ``images`` (B, H, W, C) in [0, 255], ``masks`` (B, H, W) integer labels or
-    None -> float32 images in [0, 255] and int32 masks (or None)."""
-    _check_light_family(cfg)
+    None -> float32 images in [0, 255] and int32 masks (or None).
+
+    The four linear outer children compose in the per-batch drawn order into
+    one warp per image, with perspective on the SomeOf block's side of the
+    product and the elastic and piecewise fields added to the sample
+    coordinates. With SomeOf members, the SomeOf block runs before the warp
+    if it was drawn before both live warp children (crop&pad, affine), after
+    it if after both, and by the ``coin`` between them; its intensity entries
+    run in the ``perm12`` order. The host reads only CPU tensors of the
+    draws, so nothing here waits for the device."""
     images = images.to(torch.float32)
-    _, h, w, _ = images.shape
-    # per-batch outer order of [Fliplr, Flipud, CropAndPad, Affine, SomeOf]:
-    # pos[child] = application position; the 4 linear children in that order
-    pos = torch.argsort(draws["order5"])
-    geo_seq = torch.argsort(pos[:4])
-    mats, any_warp, snap = child_matrices_from_params(
-        draws["gates"], draws["p4"], draws["sy"], draws["sx"], draws["theta_deg"], draws["shear_deg"],
-        draws["t"], draws["snap_u"], h, w,
-    )
-    mats = mats[:, geo_seq]  # (B, 4, 3, 3) in application order
-    M = mats[:, 0] @ mats[:, 1] @ mats[:, 2] @ mats[:, 3]
-    # border mode and cval apply to the crop&pad/affine IMAGE resample; when
-    # neither fired the composite keeps imgaug's defaults (constant 0)
-    zero = torch.zeros((), dtype=torch.float32, device=images.device)
-    cval = torch.where(any_warp, draws["cval"].to(torch.float32), zero)
-    mode = None
-    if cfg.border_mode_all:
-        mode = torch.where(any_warp, draws["mode"].to(torch.int32), torch.zeros((), dtype=torch.int32, device=images.device))
-    if masks is not None:
-        images, m = _warp_one(images, M, None, order=1, cval=cval, mode=mode, snap=snap, nn=masks.to(torch.float32))
-        masks = m.to(torch.int32)
+    b, h, w, _ = images.shape
+    dev = images.device
+    live = live_members(cfg)
+    intensity_first = False
+    if cfg.someof_n > 0:
+        pos = torch.argsort(_host(draws, "order5")).tolist()  # pos[child] = application position
+        geo_seq = sorted(range(4), key=lambda child: pos[child])
+        warp_pos = [pos[child] for child, p in ((2, cfg.croppad_prob), (3, cfg.affine_prob)) if p > 0]
+        coin = bool(_host(draws, "coin"))
+        if warp_pos:
+            before, after = pos[4] < min(warp_pos), pos[4] > max(warp_pos)
+            intensity_first = before or (not after and coin)
+        else:
+            intensity_first = coin
+        order = _host(draws, "perm12").tolist()
     else:
-        images = _warp_one(images, M, None, order=1, cval=cval, mode=mode, snap=snap)
-    # every intensity gate of the family is 0: what is left of the intensity
-    # block is its final clip
-    return torch.clamp(images, 0.0, 255.0), masks
+        # light/legacy: the drawn order among the linear children, on the device
+        pos = torch.argsort(draws["order5"])
+        geo_seq = torch.argsort(pos[:4])
+        order = range(12)
+    steps, member_gates = _plan(draws, order, dev) if live else ([], None)
+
+    def geometry(images, masks):
+        mats, any_warp, snap = child_matrices_from_params(
+            draws["gates"], draws["p4"], draws["sy"], draws["sx"], draws["theta_deg"], draws["shear_deg"],
+            draws["t"], draws["snap_u"], h, w,
+        )
+        mats = [mats[:, i] for i in geo_seq] if isinstance(geo_seq, list) else mats[:, geo_seq].unbind(1)
+        M = mats[0] @ mats[1] @ mats[2] @ mats[3]  # (B, 3, 3) in application order
+        disp = None
+        if 14 in live:  # inverse maps compose right to left: perspective sits on the SomeOf side
+            P = perspective_from_params(member_gates[:, 2], draws["persp_scale"], draws["persp_jitter"], h, w)
+            M = P @ M if intensity_first else M @ P
+        if 12 in live or 13 in live:
+            disp = torch.zeros((b, h, w, 2), dtype=torch.float32, device=dev)
+        if 12 in live:
+            field = draws["elastic_field"].to(torch.float32) * draws["elastic_alpha"].to(torch.float32)[:, None, None, None]
+            disp = disp + torch.where(member_gates[:, 0, None, None, None], field, 0.0)
+        if 13 in live:
+            field = piecewise_field(draws["pw_grid"], draws["pw_scale"], h, w)
+            disp = disp + torch.where(member_gates[:, 1, None, None, None], field, 0.0)
+        # border mode and cval apply to the crop&pad/affine IMAGE resample; when
+        # neither fired the composite keeps imgaug's defaults (constant 0)
+        cval = torch.where(any_warp, draws["cval"].to(torch.float32), 0.0)
+        mode = None
+        if cfg.border_mode_all:
+            mode = torch.where(any_warp, draws["mode"].to(torch.int32), torch.zeros((), dtype=torch.int32, device=dev))
+        if masks is not None:
+            images, m = _warp_one(images, M, disp, order=1, cval=cval, mode=mode, snap=snap, nn=masks.to(torch.float32))
+            return images, m.to(torch.int32)
+        return _warp_one(images, M, disp, order=1, cval=cval, mode=mode, snap=snap), None
+
+    if intensity_first:
+        images = apply_intensity(images, draws, steps)
+        return geometry(images, masks)
+    images, masks = geometry(images, masks)
+    return apply_intensity(images, draws, steps), masks
 
 
 def make_augment_fn(cfg: AugmentConfig):
-    """Build ``augment(generator, images, masks=None) -> (images, masks)``.
+    """Build ``augment(generator, images, masks=None, host_generator=None) ->
+    (images, masks)``.
 
     ``images``: (B, H, W, C) uint8/float tensor in [0, 255]; ``masks``:
     (B, H, W) integer labels (or None). The work runs on the images' device
-    and ``generator`` must live there. Returns float32 images in [0, 255]
-    (normalisation stays downstream, matching the reference's order of
-    operations) and int32 masks. Raises ``NotImplementedError`` for a config
-    outside the light family.
+    and ``generator`` must live there; ``host_generator`` (a CPU generator)
+    draws the decisions the host needs (see :func:`sample_draws`). Returns
+    float32 images in [0, 255] (normalisation stays downstream, matching the
+    reference's order of operations) and int32 masks.
     """
-    _check_light_family(cfg)
 
-    def augment(generator: torch.Generator, images, masks=None):
-        draws = sample_draws(generator, cfg, images.shape[0], images.device)
+    def augment(generator: torch.Generator, images, masks=None, host_generator: Optional[torch.Generator] = None):
+        draws = sample_draws(generator, cfg, images.shape[0], images.device, tuple(images.shape[1:]), host_generator)
         return augment_from_draws(cfg, images, masks, draws)
 
     return augment

@@ -58,13 +58,18 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
     through untouched (already volume-normalised upstream).
 
     ``train=True`` returns ``process_train(generator, raw, with_vert_t=True,
-    draws=None)``: ``generator`` is a ``torch.Generator`` on ``device``;
-    ``with_vert_t=False`` drops the logged-only target cloud (the
-    ``cfg.vert_t_every`` cadence gate); ``draws`` replays recorded random
-    draws instead of drawing (``{"aug_s", "aug_t"}``: dictionaries of
-    ``ops.augment.sample_draws``; ``{"starts_s", "starts_t"}``: FPS start
-    indices), which is how the tests feed both packages the same numbers.
-    ``train=False`` returns ``process_eval(raw)``.
+    draws=None, host_generator=None)``: ``generator`` is a ``torch.Generator``
+    on ``device``; ``host_generator`` a CPU one, for the decisions the heavy
+    and medium pipelines take on the host (the orders, the SomeOf members
+    that fire; ``ops.augment.sample_draws``), needed when ``generator`` is
+    not itself on the CPU; ``with_vert_t=False`` drops the logged-only
+    target cloud (the ``cfg.vert_t_every`` cadence gate); ``draws`` replays
+    recorded random draws instead of drawing (``{"aug_s", "aug_t"}``:
+    dictionaries of ``ops.augment.sample_draws``; ``{"starts_s",
+    "starts_t"}``: FPS start indices), which is how the tests feed both
+    packages the same numbers. ``train=False`` returns ``process_eval(raw)``.
+    A train call on a batch already on the card does not wait for the card
+    (``chip_smoke.py`` phase (h) checks it for the heavy pipeline).
 
     ``fps_impl`` goes to ``masks_to_point_clouds_from_starts``: ``"auto"``
     launches the FPS kernel on the card; ``"plain"`` is what the checks on
@@ -73,8 +78,6 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
     device = resolve_device(device)
     aug_cfg = {"heavy": augment_lib.heavy(), "aug2": augment_lib.medium(), "light": augment_lib.light()}.get(cfg.aug)
     use_aug = bool(train and device_augment and aug_cfg)
-    if use_aug:
-        augment_lib.make_augment_fn(aug_cfg)  # raises for a pipeline that is not ported
     is_png = cfg.workload == "mscmrseg"
     # MM-WHS + augmentation + point head: regenerate clouds on device from
     # the warped masks (the reference does this per sample on the host via
@@ -103,11 +106,11 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
         classes = torch.arange(cfg.n_class, device=mask.device)
         return (mask[..., None] == classes).to(torch.float32)
 
-    def aug_pair(generator, img, mask, draws):
+    def aug_pair(generator, host_generator, img, mask, draws):
         if not use_aug:
             return img.to(torch.float32), mask
         if draws is None:
-            draws = augment_lib.sample_draws(generator, aug_cfg, img.shape[0], img.device)
+            draws = augment_lib.sample_draws(generator, aug_cfg, img.shape[0], img.device, tuple(img.shape[1:]), host_generator)
         if is_png:
             return augment_lib.augment_from_draws(aug_cfg, img, mask, draws)
         lo, hi = torch.min(img), torch.max(img)
@@ -121,13 +124,14 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
         return masks_to_point_clouds_from_starts(mask, starts, impl=fps_impl) / 255.0
 
     @torch.no_grad()
-    def process_train(generator: Optional[torch.Generator], raw, with_vert_t: bool = True, draws=None):
+    def process_train(generator: Optional[torch.Generator], raw, with_vert_t: bool = True, draws=None,
+                      host_generator: Optional[torch.Generator] = None):
         raw = tensors(raw)
         draws = draws or {}
         vert_t_on = cfg.vert_t_metric and with_vert_t
-        img_s, mask_s = aug_pair(generator, raw["img_s"], raw["mask_s"].to(torch.int32), draws.get("aug_s"))
+        img_s, mask_s = aug_pair(generator, host_generator, raw["img_s"], raw["mask_s"].to(torch.int32), draws.get("aug_s"))
         mask_t = raw["mask_t"].to(torch.int32) if (regen_verts and "mask_t" in raw) else None
-        img_t, mask_t = aug_pair(generator, raw["img_t"], mask_t, draws.get("aug_t"))
+        img_t, mask_t = aug_pair(generator, host_generator, raw["img_t"], mask_t, draws.get("aug_t"))
         batch = {
             "img_s": crop(norm_img(img_s)),
             "mask_s": one_hot(crop(mask_s)),
@@ -223,6 +227,9 @@ class UDATrainer:
         self.pre_eval = make_device_preprocess(cfg, train=False, device_augment=False, device=self.device)
         self.place = place if place is not None else (lambda b: to_device(b, self.device))
         self._aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
+        # the heavy and medium pipelines' orders and SomeOf members, drawn on
+        # the host so that it never waits for the device to learn them
+        self._aug_host_gen = torch.Generator().manual_seed(cfg.seed + 19)
 
         self.writer = MetricWriter(logdir, comment=self.appendix)
         mk = lambda name, best: ckpt_lib.ModelCheckpointCallback(  # noqa: E731
@@ -260,7 +267,7 @@ class UDATrainer:
                 # off-cadence steps drop vert_t, and with it the target
                 # cloud's regeneration and the diagnostic's launch
                 with_vt = every <= 1 or step % every == 0
-                batch = self.pre_train(self._aug_gen, raw, with_vert_t=with_vt)
+                batch = self.pre_train(self._aug_gen, raw, with_vert_t=with_vt, host_generator=self._aug_host_gen)
                 self.state, metrics = self.train_step(self.state, batch)
             metrics_acc.append(metrics)  # 0-d tensors on the device: nothing is read here
             step += 1
@@ -314,7 +321,7 @@ class UDATrainer:
     def save_full(self, path: str, epoch: int) -> None:
         """Snapshot EVERYTHING needed to resume mid-run: all four networks
         (weights + BN statistics + optimiser state), the step count, the
-        dropout generator's and the augmentation generator's state, the
+        dropout generator's and both augmentation generators' states, the
         epoch counter, lr, best-so-far, the monitors of the best-checkpoint
         callback and of early stopping, and the samplers' ring cursors and
         orders.
@@ -329,6 +336,7 @@ class UDATrainer:
             "best_val_lge_dice": float(self.best["val_lge_dice"]),
             "best_epoch": int(self.best["epoch"]),
             "aug_rng": self._aug_gen.get_state(),
+            "aug_host_rng": self._aug_host_gen.get_state(),
             "dropout_rng": self.state.generator.get_state(),
             "step": int(self.state.step),
             "nets": {
@@ -362,6 +370,7 @@ class UDATrainer:
         self.state.step = int(payload["step"])
         self.state.generator.set_state(payload["dropout_rng"])
         self._aug_gen.set_state(payload["aug_rng"])
+        self._aug_host_gen.set_state(payload["aug_host_rng"])
         self._lr = float(payload["lr"])
         self.best["val_lge_dice"] = float(payload["best_val_lge_dice"])
         self.best["epoch"] = int(payload["best_epoch"])

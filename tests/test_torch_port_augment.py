@@ -301,8 +301,16 @@ def test_augment_fn_rates_and_labels():
 
 @pytest.mark.parametrize("name", ["heavy", "medium"])
 def test_heavy_and_medium_wait(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        taug.make_augment_fn(getattr(taug, name)())
+    """The heavy and medium pipelines no longer wait for a later slice: each
+    builds and runs once from its own generators (their parity with the JAX
+    package is held in tests/test_torch_port_augment_heavy.py)."""
+    fn = taug.make_augment_fn(getattr(taug, name)())
+    rng = np.random.default_rng(2)
+    images = torch.tensor(rng.integers(0, 256, size=(4, H, W, 3), dtype=np.uint8))
+    masks = torch.tensor(rng.integers(0, 4, size=(4, H, W), dtype=np.uint8))
+    out, m = fn(torch.Generator().manual_seed(0), images, masks, host_generator=torch.Generator().manual_seed(1))
+    assert out.dtype == torch.float32 and out.shape == images.shape and m.dtype == torch.int32 and m.shape == masks.shape
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 255.0 and set(m.unique().tolist()) <= {0, 1, 2, 3}
 
 
 @pytest.mark.parametrize("name", ["heavy", "medium", "light"])

@@ -132,11 +132,23 @@ def test_bfloat16_is_rejected_before_training(argv, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [[], ["-aug2"]], ids=["heavy", "medium"])
-def test_mscmrseg_without_aug_asks_for_a_pipeline_that_is_not_ported(argv, tmp_path):
-    root = make_mscmrseg_dataset(tmp_path / "d", n=2)
-    with pytest.raises(NotImplementedError):
-        train_mscmrseg.main(argv + ["-data_dir", root, "-workdir", str(tmp_path / "w"), "-logdir", str(tmp_path / "r")], device="cpu")
-    assert not os.path.exists(tmp_path / "w")  # nothing was trained or saved
+def test_mscmrseg_without_aug_asks_for_a_pipeline_that_is_not_ported(argv, tmp_path, capsys, monkeypatch):
+    """Without ``-aug`` the reference's command asks for the heavy pipeline
+    (``-aug2``: the medium one), which is ported now: ``main`` with the
+    reference's ``-d1 -d2 -d4`` trains an epoch of two steps on the CPU (at
+    96^2 and 8 filters through the preset's late binding), every printed
+    score finite, the checkpoints under the reference's names (the appendix
+    marks ``-aug2`` and, as the reference's does, not the heavy default)."""
+    root = make_mscmrseg_dataset(tmp_path / "d", size=96, n=4)
+    preset = port_config.mscmrseg_default
+    monkeypatch.setattr(port_config, "mscmrseg_default", lambda **kw: preset(**{**kw, "crop_size": 96, "fc_inch": 1, "filters": 8}))
+    train_mscmrseg.main(argv + ["-d1", "-d2", "-d4", "-bs", "2", "-ns", "4", "-e", "1", "-data_dir", root, "-workdir",
+                                str(tmp_path / "w"), "-logdir", str(tmp_path / "r"), "-workers", "2"], device="cpu")
+    out = capsys.readouterr().out
+    apdx = out.splitlines()[0]
+    assert apdx.endswith(".aug2" if argv else ".d4lr2.5e-05") and "[1/1]" in out and "nan" not in out
+    files = sorted(os.listdir(tmp_path / "w"))
+    assert {f"unet_model_checkpoint_{apdx}", f"out_dis_{apdx}", f"entropy_dis_{apdx}", f"point_dis_{apdx}"} <= set(files)
 
 
 def test_mmwhs_cli_trains_resumes_and_warm_restarts(tmp_path, capsys, monkeypatch):

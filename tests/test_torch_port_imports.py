@@ -234,7 +234,7 @@ def _code(obj):
         ("data.sampler", ["RingSampler"]),
         ("data.manifest", ["load_ids", "write_ids"]),
         ("data.mmwhs", ["match_histograms_single", "MMWHSAdapter"]),
-        ("data.mscmrseg", ["decode_mask_values", "MSCMRSegAdapter"]),
+        ("data.mscmrseg", ["decode_mask_values"]),  # the adapter decodes PNGs without cv2: held by its records below
         ("parallel.mesh", ["pad_batch"]),
         ("train.checkpoint", ["EarlyStoppingCallback"]),
         ("utils.timer", ["timeit", "TimeChecker"]),

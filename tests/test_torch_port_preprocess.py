@@ -171,10 +171,71 @@ def test_light_preprocess_draws_by_itself():
 
 @pytest.mark.parametrize("aug", ["heavy", "aug2"])
 def test_unported_pipelines_raise(aug):
-    _, tcfg = _cfgs("mscmrseg", aug=aug)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_device_preprocess(tcfg, True, True, device="cpu")
+    """Heavy and medium (``aug2``) are ported and no longer raise: the
+    preprocess draws by itself (a CPU generator serves the host's draws too;
+    given generators repeat), and MS-CMRSeg keeps its precomputed clouds."""
+    jc, tcfg = _cfgs("mscmrseg", aug=aug)
+    raw = _raw(jc, 40)
+    fn = make_device_preprocess(tcfg, True, True, device="cpu")
+    a = fn(torch.Generator().manual_seed(0), raw, host_generator=torch.Generator().manual_seed(1))
+    b = fn(torch.Generator().manual_seed(0), raw, host_generator=torch.Generator().manual_seed(1))
+    assert all(torch.equal(a[k], b[k]) for k in a) and a["img_s"].shape == (BS, 32, 32, 3)
+    assert float(a["img_s"].min()) >= 0.0 and float(a["img_s"].max()) <= 1.0
+    np.testing.assert_array_equal(a["vert_s"].numpy(), raw["vert_s"] / np.float32(255.0))
+    assert set(fn(torch.Generator().manual_seed(2), raw)) == set(a)
     make_device_preprocess(tcfg, True, False, device="cpu")  # no device augmentation asked: fine
+
+
+def _heavy_draws(key, size):
+    from test_torch_port_augment_heavy import jax_heavy_draws
+
+    r1, r2, r3, r4 = jax.random.split(key, 4)
+    return r3, r4, {"aug_s": jax_heavy_draws(r1, jaug.heavy(), BS, size, size, 3),
+                    "aug_t": jax_heavy_draws(r2, jaug.heavy(), BS, size, size, 3)}
+
+
+@pytest.mark.parametrize("workload", ["mscmrseg", "mmwhs"])
+def test_heavy_preprocess_matches_jax_on_its_draws(workload):
+    """The reference's default pipeline through the whole train preprocess
+    (MS-CMRSeg: uint8 slices, precomputed clouds; MM-WHS: float slices
+    min-max mapped around the augmentation, both clouds regenerated from the
+    warped masks by FPS) on JAX's draws. Images within the heavy pipeline's
+    atol (0.05 on 0..255, mapped back to the MM-WHS range) except where the
+    superpixels' k-means parted ways (tests/test_torch_port_augment_heavy.py:
+    50% of a touched sample, 0.5% of the others); one-hot masks equal except
+    <= 0.5% of pixels; where a sample's warped mask is equal, its clouds are
+    equal as voxel coordinates."""
+    from test_torch_port_augment_heavy import PIPE_ATOL, _held_pipeline
+
+    size = 40
+    jcfg, tcfg = _cfgs(workload, aug="heavy")
+    raw = _raw(jcfg, size, seed=3)
+    if workload == "mmwhs":
+        raw["mask_s"], raw["mask_t"] = blob_masks(BS, size, 3), blob_masks(BS, size, 103)
+    key = jax.random.PRNGKey(4)
+    want = jloop.make_device_preprocess(jcfg, train=True, device_augment=True)(key, raw)
+    r3, r4, draws = _heavy_draws(key, size)
+    if workload == "mmwhs":  # the FPS starts are drawn over the warped masks' candidates
+        blank = torch.zeros(BS, size, size, 3)
+        for name, side, r in (("starts_s", "s", r3), ("starts_t", "t", r4)):
+            _, warped = taug.augment_from_draws(taug.heavy(), blank, torch.tensor(raw[f"mask_{side}"]), draws[f"aug_{side}"])
+            draws[name] = torch.tensor(_jax_starts(warped.numpy(), r)[1])
+    got = make_device_preprocess(tcfg, True, True, device="cpu")(None, raw, draws=draws)
+    assert set(got) == set(want)
+    span = 255.0 if workload == "mscmrseg" else float(max(np.ptp(raw["img_s"]), np.ptp(raw["img_t"])))
+    for side in ("s", "t"):
+        g, w = got[f"img_{side}"].numpy() * (255.0 / span), np.asarray(want[f"img_{side}"]) * (255.0 / span)
+        _held_pipeline(g, w, draws[f"aug_{side}"], f"img_{side}")
+    same = (got["mask_s"].numpy() == np.asarray(want["mask_s"])).all(-1)
+    assert 1 - same.mean() <= 0.005
+    for key in ("vert_s", "vert_t"):
+        g, w = np.rint(got[key].numpy() * 255.0), np.rint(np.asarray(want[key]) * 255.0)
+        if workload == "mscmrseg":
+            np.testing.assert_array_equal(g, w)  # precomputed, passed through
+        else:
+            held = same.reshape(BS, -1).all(1) if key == "vert_s" else np.ones(BS, bool)
+            np.testing.assert_array_equal(g[held], w[held], err_msg=key)
+    assert PIPE_ATOL == 0.05
 
 
 def test_preprocess_needs_a_card_unless_told():

@@ -16,7 +16,7 @@ over the optimiser steps); Dice scores 4e-3 (hard argmax over logits that the
 initial weights leave within noise of each other); the discriminator's
 accuracies two flipped decisions of the smallest step (2 real samples x 16
 patch logits) in an epoch's mean. The port's kill-and-resume is held bit for
-bit.
+bit, with the light and with the heavy augmentation.
 """
 
 import json
@@ -191,6 +191,27 @@ def test_kill_and_resume_reproduces_the_run_bit_for_bit(mmwhs_root, tmp_path):
     for epoch in (3, 4):
         assert got[epoch] == want[epoch], {k: (v, want[epoch][k]) for k, v in got[epoch].items() if v != want[epoch][k]}
     assert (b.best["epoch"], b.best["val_lge_dice"]) == (full.best["epoch"], full.best["val_lge_dice"])
+    for x, y in zip(full.gen.state_dict().values(), b.gen.state_dict().values()):
+        assert torch.equal(x, y)
+
+
+def test_heavy_kill_and_resume_reproduces_the_run_bit_for_bit(mmwhs_root, tmp_path):
+    """The same with the heavy pipeline, whose orders and SomeOf members come
+    from the host generator: a run stopped after epoch 1's snapshot and
+    resumed logs the uninterrupted run's epoch 2 exactly, and the host
+    generator's state is in the snapshot."""
+    kw = dict(softmax=True, d2=True, d4=True, aug="heavy", vert_t_every=2, epochs=2)
+    full = _port_trainer(mmwhs_root, tmp_path, "hfull", **kw)
+    full.fit()
+    snap = str(tmp_path / "hsnap")
+    a = _port_trainer(mmwhs_root, tmp_path, "ha", **kw)
+    a.fit(epochs=1, save_full_every=1, save_full_path=snap)
+    assert torch.equal(loop.ckpt_lib.restore_pytree(snap)["aug_host_rng"], a._aug_host_gen.get_state())
+    b = _port_trainer(mmwhs_root, tmp_path, "hb", **kw)
+    assert b.restore_full(snap) == 2
+    b.fit(start_epoch=2)
+    want, got = _scalars(tmp_path / "r_hfull"), _scalars(tmp_path / "r_hb")
+    assert sorted(got) == [2] and got[2] == want[2], {k: (v, want[2][k]) for k, v in got[2].items() if v != want[2][k]}
     for x, y in zip(full.gen.state_dict().values(), b.gen.state_dict().values()):
         assert torch.equal(x, y)
 
