@@ -52,10 +52,14 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       ``pointcloududa_torch.cli.train_mmwhs.main`` trains on it for 2 epochs
       of 4 steps (bs 16, nf 32, light augmentation, softmax, D2 + D4, the
       target cloud's diagnostic every 2nd step, a full snapshot per epoch),
-      each epoch with its three validations: every logged scalar finite,
-      the checkpoint files present under the reference's names and loadable,
+      each epoch with its three validations, then the final evaluation of
+      its best checkpoint on four fabricated CT test volumes (256 x 256 x
+      32, four ellipsoid structures): every logged scalar finite, the
+      checkpoint files present under the reference's names and loadable,
       every kernel's launch count equal to what steps, cadence and validation
-      batches give; seconds per epoch and ms per training iteration beside
+      batches give (the evaluation adds none), ``Ave Dice`` printed and every
+      metric finite or the -1 sentinel, seconds per patient on the card and
+      on the host; seconds per epoch and ms per training iteration beside
       phase (f)'s preprocess + step. Then, with cuDNN deterministic (at its
       defaults two runs from one seed part ways within an epoch), the same
       2 epochs again, a second call that resumes from the snapshot at epoch
@@ -89,13 +93,35 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       (g) (scalars, checkpoint names, launch counts from steps and
       validation batches, ms per iteration beside phase (h)'s preprocess +
       step), and, with cuDNN deterministic, a resumed epoch 3 that must equal
-      an uninterrupted run's bit for bit (phase (g)'s code).
+      an uninterrupted run's bit for bit (phase (g)'s code);
+  (j) evaluation at full width, on test patients fabricated into a temporary
+      directory that the phase removes: ``cli.evaluate_mscmrseg.main -klc
+      -clahe -toplot -csv`` on phase (i)'s best generator (nf 32, 224^2) over
+      two LGE patients (256^2 PNG slices; ground truth 480 x 480 x 12, which
+      the resize enlarges to, and 208 x 240 x 10, which it shrinks to by
+      factors that are not integers), the triptychs and CSV rows written; the
+      same weights saved again in the reference's callback layout with
+      torch 1.4's serialisation give equal labels and metrics; the same
+      evaluation on the CPU, whose label volumes may differ from the card's
+      in at most ``LABEL_SHARE`` of a patient's voxels and whose metrics
+      equal the card's wherever the labels do, and the same comparison for
+      an untrained generator from a seed saved as a bare ``state_dict``
+      (Dice only), whose labels are not nearly all background as the
+      trained one's are; ``cli.evaluate_mmwhs.main
+      -from_name -save`` on phase (g)'s best generator, equal to phase (g)'s
+      final evaluation; ``Predictor`` at nf 32, bs 8, 224^2 and 256^2 (tail
+      padding, card against CPU, ms per batch between CUDA events and images
+      per second) and ``export_predictor`` -> ``load_exported`` on the card
+      against it (artifact bytes, load seconds); per patient the forward's
+      and the host's seconds, the host's by step; and no kernel launched on
+      the evaluation path (eval mode normalises with running statistics).
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
 plain version's, the least time the card could take for the same bytes and
 operations, and a library call's time where one computes the same function;
-``by_path`` holds each path's launches and, where a kernel's shapes differ
+``by_path`` holds each path's launches (``evaluation``: 0 for every kernel)
+and, where a kernel's shapes differ
 between the paths, its numbers at that path's largest shape);
 the last line is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
@@ -137,6 +163,19 @@ F32_FLOP_PER_S = 67e12
 # the distances start. Rounds cannot overlap, so k-1 of them is a floor that
 # bytes and operations over the whole card do not see.
 FPS_ROUND_FLOOR_US = 1.0
+# the CT test volumes of phase (g)'s final evaluation (and of phase (j)): the
+# reference's four patients, 256 x 256 x CT_TEST_Z
+CT_TEST, CT_TEST_Z = (1003, 1008, 1014, 1019), 32
+# phase (j): the LGE test patients and their ground truth's (X, Y, Z) as the
+# nii stores it. 6 enlarges from the 256^2 canvas, 7 shrinks by factors that
+# are not integers (256/208, 256/240) and is not square
+LGE_TEST = {6: (480, 480, 12), 7: (208, 240, 10)}
+# card against CPU in phase (j): the share of a patient's label voxels that may
+# differ (a last-bit difference between cuDNN's and the CPU's f32 convolutions
+# flips the argmax of a near-tie) and the logits' largest difference, scaled by
+# their largest magnitude
+LABEL_SHARE = 1e-3
+LOGIT_SCALED_TOL = 1e-4
 # one-step kernel-vs-plain agreement of the train-step metrics: the tolerance
 # of tests/test_step_parity_torch.py (sum order in f32 reductions differs
 # between the kernels and PyTorch's own reductions)
@@ -841,7 +880,38 @@ def _fabricate_mmwhs(root: str, seed: int) -> int:
             if split != "mr_train":
                 np.save(os.path.join(base, "vertices", f"{_id}.npy"), (rng.uniform(size=(300, 3)) * 255.0).astype(np.float32))
         write_ids(os.path.join(root, f"{split}_list.csv"), ids)
-    return sum(RUN_SLICES.values())
+    return sum(RUN_SLICES.values()) + _fabricate_ct_test(root, seed)
+
+
+def _ellipsoids(shape, n_labels: int, rng) -> np.ndarray:
+    """(Z, Y, X) uint8 labels 1..n_labels of filled ellipsoids, each over
+    the ones before it: connected structures, as anatomy has."""
+    zz, yy, xx = np.ogrid[: shape[0], : shape[1], : shape[2]]
+    out = np.zeros(shape, np.uint8)
+    for label in range(1, n_labels + 1):
+        cz, cy, cx = (rng.uniform(0.3 * n, 0.7 * n) for n in shape)
+        rz = rng.uniform(0.25 * shape[0], 0.45 * shape[0])
+        ry, rx = (rng.uniform(0.08 * n, 0.22 * n) for n in shape[1:])
+        out[((zz - cz) / rz) ** 2 + ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0] = label
+    return out
+
+
+def _fabricate_ct_test(root: str, seed: int) -> int:
+    """The four CT test patients of ``eval/volume.py:read_mmwhs_volume``,
+    written by the port's ``save_nii``: 256 x 256 x Z float32 images (noise
+    around the structures, as the training slices) and int16 ground truth of
+    four ellipsoids labelled 1-4."""
+    from pointcloududa_torch.utils.nifti import save_nii
+
+    base = os.path.join(root, "PnpAda_release_data", "test_ct_image_n_labels")
+    os.makedirs(base, exist_ok=True)
+    rng = np.random.default_rng(seed + 100)
+    for pat_id in CT_TEST:
+        labels = _ellipsoids((CT_TEST_Z, 256, 256), 4, rng)
+        img = rng.normal(size=labels.shape).astype(np.float32) * 0.5 + labels.astype(np.float32) * 0.5
+        save_nii(os.path.join(base, f"image_ct_{pat_id}.nii.gz"), np.moveaxis(img, 0, 2))
+        save_nii(os.path.join(base, f"gth_ct_{pat_id}.nii.gz"), np.moveaxis(labels.astype(np.int16), 0, 2))
+    return len(CT_TEST) * CT_TEST_Z
 
 
 def _read_scalars(logdir: str) -> dict:
@@ -854,6 +924,110 @@ def _read_scalars(logdir: str) -> dict:
                     r = json.loads(line)
                     recs.setdefault(r["step"], {}).update({k: v for k, v in r.items() if k not in ("step", "time")})
     return recs
+
+
+def _quiet(fn, *args, **kw):
+    """Call ``fn`` with its standard output indented under the phase's."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn(*args, **kw)
+    for line in out.getvalue().splitlines():
+        print(f"    | {line}")
+    return result, out.getvalue()
+
+
+@contextlib.contextmanager
+def _eval_clock():
+    """While it is open, the port's volume evaluations note per patient the
+    host seconds of the batched forward (it ends in the copy of the logits to
+    the host, so it waits for the card) and of the whole patient (reading,
+    forward, CLAHE, resize, KLC, metrics), the host seconds of each of those
+    steps over the evaluation, the label volumes handed to the metrics and
+    what the metrics returned for them, and each evaluation's returned
+    summary."""
+    from pointcloududa_torch.eval import volume
+    from pointcloududa_torch.ops import metrics
+
+    steps = {"read": ("load_nii", "read_png"), "clahe": ("apply_clahe",), "resize": ("resize_volume",),
+             "klc": ("keep_largest_connected_components",)}
+    rec = dict(forward=[], total=[], labels=[], scores=[], results=[], mark=time.perf_counter(),
+               host=dict.fromkeys([*steps, "metrics"], 0.0))
+    saved = {(m, n): getattr(m, n) for m, n in [(volume, "make_volume_forward"), (volume, "evaluate_mscmrseg"),
+                                                 (volume, "evaluate_mmwhs"), (metrics, "compute_metrics_on_files"),
+                                                 (metrics, "metrics_mmwhs_volume")]
+             + [(volume, n) for names in steps.values() for n in names]}
+
+    def timed(fn, key):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            rec["host"][key] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def make(gen, device=None, bs=8):
+        run = saved[(volume, "make_volume_forward")](gen, device, bs)
+        rec["mark"] = time.perf_counter()
+
+        def forward(x):
+            t0 = time.perf_counter()
+            out = run(x)
+            rec["forward"].append(time.perf_counter() - t0)
+            return out
+        return forward
+
+    def scored(fn):
+        fn = timed(fn, "metrics")
+
+        def wrapper(gt, pred, **kw):
+            out = fn(gt, pred, **kw)
+            now = time.perf_counter()
+            rec["labels"].append(np.array(pred))
+            rec["scores"].append(out)
+            rec["total"].append(now - rec["mark"])
+            rec["mark"] = now
+            return out
+        return wrapper
+
+    def kept(fn):
+        def wrapper(*args, **kw):
+            rec["results"].append(fn(*args, **kw))
+            return rec["results"][-1]
+        return wrapper
+
+    volume.make_volume_forward = make
+    volume.evaluate_mscmrseg = kept(saved[(volume, "evaluate_mscmrseg")])
+    volume.evaluate_mmwhs = kept(saved[(volume, "evaluate_mmwhs")])
+    metrics.compute_metrics_on_files = scored(saved[(metrics, "compute_metrics_on_files")])
+    metrics.metrics_mmwhs_volume = scored(saved[(metrics, "metrics_mmwhs_volume")])
+    for key, names in steps.items():
+        for n in names:
+            setattr(volume, n, timed(saved[(volume, n)], key))
+    try:
+        yield rec
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+
+
+def _check_scores(result: dict, what: str) -> None:
+    """Every metric of an evaluation finite: a mean Dice in [-1, 1] (the
+    reference averages a patient's -1 sentinel in), every other number
+    non-negative or the -1 sentinel."""
+    for structure, values in result.items():
+        for key, v in values.items():
+            ok = -1.0 <= v <= 1.0 if key == "dice_mean" else (v == -1.0 or v >= 0.0)
+            _require(bool(np.isfinite(v)) and ok, f"{what}: {structure} {key} = {v}")
+
+
+def _per_patient(clock: dict, ids, card: str, what: str) -> str:
+    _require(len(clock["forward"]) == len(clock["total"]) == len(ids), f"{what}: {len(clock['total'])} patients scored of {len(ids)}")
+    parts = [f"{i}: forward {f:.3f} s + host {t - f:.3f} s" for i, f, t in zip(ids, clock["forward"], clock["total"])]
+    fwd, tot = sum(clock["forward"]), sum(clock["total"])
+    host = dict(clock["host"], other=tot - fwd - sum(clock["host"].values()))
+    return (f"  {what}, seconds per patient (forward on the card, copies included; host: reading, resize, CLAHE, KLC, "
+            f"metrics): {'; '.join(parts)}; the card's share {fwd / tot:.1%}; the host's seconds by step over the "
+            f"patients: {', '.join(f'{k} {v:.3f}' for k, v in host.items())}, on {card}")
 
 
 def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
@@ -874,10 +1048,15 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
     snapshot's networks), ``files`` (the checkpoints' name stems),
     ``steps`` (per epoch), ``val_batches``, ``bit_equal`` (whether the resumed
     epoch must equal the uninterrupted one bit for bit, or within the step
-    tolerance)."""
+    tolerance), ``final_eval`` (the flags that skip the entry point's final
+    evaluation of the best checkpoint in every call but the first, or None
+    where it has none; the first call's is checked and timed) and ``keep``
+    (a directory the renamed best generator checkpoint is copied to before
+    the run's directories go)."""
     from pointcloududa_torch.train import checkpoint, loop
 
     steps, val_batches = run_spec["steps"], run_spec["val_batches"]
+    final = None
     tmp = tempfile.mkdtemp(prefix="pcuda_smoke_")
     train_s, valid_s, waits = [], [], []
     originals = loop.UDATrainer.train_epoch, loop.UDATrainer.validate, loop.DevicePrefetcher
@@ -907,16 +1086,12 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
             return out
         return wrapper
 
-    def run(tag, epochs):
-        argv = run_spec["argv"] + ["-e", str(epochs), "-data_dir", os.path.join(tmp, "data"),
+    def run(tag, epochs, final_eval=False):
+        skip = [] if final_eval or run_spec["final_eval"] is None else run_spec["final_eval"]
+        argv = run_spec["argv"] + skip + ["-e", str(epochs), "-data_dir", os.path.join(tmp, "data"),
                                    "-workdir", os.path.join(tmp, tag, "weights"), "-logdir", os.path.join(tmp, tag, "runs"),
                                    "-resume", os.path.join(tmp, tag, "snap")]
-        out = io.StringIO()
-        with contextlib.redirect_stdout(out):
-            run_spec["main"](argv)  # no device given: the card
-        for line in out.getvalue().splitlines():
-            print(f"    | {line}")
-        return out.getvalue()
+        return _quiet(run_spec["main"], argv)[1]  # no device given: the card
 
     try:
         t0 = time.perf_counter()
@@ -928,7 +1103,8 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
         torch.cuda.reset_peak_memory_stats(dev)
 
         _reset_launches()
-        text = run("a", 2)
+        with _eval_clock() as clock:
+            text = run("a", 2, final_eval=True)
         counts = _launch_counts()
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         want = run_spec["want"]
@@ -952,6 +1128,16 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
         best = [f for f in files if f.startswith(f"best_unet_model_checkpoint_{apdx}.Scr")]
         _require(len(best) == 1 and "model" in checkpoint.restore_pytree(os.path.join(weights, best[0]))["state"]["net"],
                  f"the renamed best checkpoint is missing among {files}")
+        shutil.copy(os.path.join(weights, best[0]), run_spec["keep"])
+        if run_spec["final_eval"] is not None:
+            # the final evaluation of the best checkpoint, after training (its forward launches no kernel: the
+            # counts above are the training's alone)
+            _require(f"Evaluate the best model: {os.path.join(weights, best[0])}" in text and "Ave Dice:" in text
+                     and len(clock["results"]) == 1, "the run did not evaluate its best checkpoint")
+            _check_scores(clock["results"][0], "final evaluation")
+            final = clock["results"][0]
+            print(_per_patient(clock, CT_TEST, card, f"final evaluation of {best[0]} on {len(CT_TEST)} CT volumes of "
+                               f"256 x 256 x {CT_TEST_Z}"))
         snap = checkpoint.restore_pytree(os.path.join(tmp, "a", "snap"))
         _require(snap["epoch"] == 2 and set(snap["nets"]) == run_spec["nets"] and snap["step"] == 2 * steps,
                  "snapshot: unexpected content")
@@ -989,20 +1175,21 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
           f"not a call's first: median {statistics.median(per_it[i] for i in (3, 6, 7)):.2f} ms (all six: "
           f"{', '.join(f'{t:.1f}' for t in per_it[2:])}); the three validations of {val_batches} batches: median "
           f"{statistics.median(valid_s) * 1e3:.1f} ms, on {card}")
-    return per_it[1]
+    return final
 
 
-def phase_training_run(torch, dev, rec, card, pre_step_ms):
-    """(g) the MM-WHS training run through ``cli.train_mmwhs.main``."""
+def phase_training_run(torch, dev, rec, card, pre_step_ms, keep):
+    """(g) the MM-WHS training run through ``cli.train_mmwhs.main``, with its
+    final evaluation; returns that evaluation's metrics."""
     from pointcloududa_torch.cli import train_mmwhs
 
     steps = -(-RUN_NS // RUN_BS)
     cadence_steps = -(-steps // RUN_VERT_T_EVERY)
     val_batches = sum(-(-RUN_SLICES[s] // RUN_BS) for s in ("mr_val", "ct_val", "ct_train"))
-    _cli_training_run(torch, dev, rec, card, dict(
+    return _cli_training_run(torch, dev, rec, card, dict(
         path="mmwhs_training_run", main=train_mmwhs.main,
         argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-nf", "32", "-aug", "light", "-softmax", "-d2", "-d4",
-              "-vert_t_every", str(RUN_VERT_T_EVERY), "-skip_final_eval"],
+              "-vert_t_every", str(RUN_VERT_T_EVERY)], final_eval=["-skip_final_eval"], keep=keep,
         fabricate=lambda root: _fabricate_mmwhs(root, seed=5),
         want={
             "fps": 2 * (steps + cadence_steps),
@@ -1322,7 +1509,7 @@ def _fabricate_mscmrseg(root: str, seed: int) -> int:
     return sum(n for _, _, n in MS_SPLITS.values())
 
 
-def phase_mscmrseg_run(torch, dev, rec, card, per_step, pre_step_ms):
+def phase_mscmrseg_run(torch, dev, rec, card, per_step, pre_step_ms, keep):
     """(i) the reference's MS-CMRSeg command through ``cli.train_mscmrseg.main``:
     no ``-aug`` (the heavy pipeline), ``-d1 -d2 -d4``."""
     from pointcloududa_torch.cli import train_mscmrseg
@@ -1336,8 +1523,173 @@ def phase_mscmrseg_run(torch, dev, rec, card, per_step, pre_step_ms):
         argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-d1", "-d2", "-d4"],
         fabricate=lambda root: _fabricate_mscmrseg(root, seed=7), want=want,
         nets={"gen", "d1", "d2", "d4"}, files=("unet_model_checkpoint", "out_dis", "entropy_dis", "point_dis"),
-        steps=steps, val_batches=val_batches, bit_equal=True, beside="phase (h)",
+        steps=steps, val_batches=val_batches, bit_equal=True, beside="phase (h)", final_eval=None, keep=keep,
     ), pre_step_ms)
+
+
+def _fabricate_lge_test(root: str, seed: int) -> int:
+    """The LGE test patients of ``eval/volume.py:evaluate_mscmrseg``: the
+    ground truth at each patient's native size (``LGE_TEST``) in the raw
+    values {200, 500, 600}, written by the port's ``save_nii``, and per slice
+    a 256^2 x 3 uint8 PNG (``utils/png.py``) of noise brightened where the
+    slice's labels, resized to 256^2 by nearest neighbour, are set."""
+    from pointcloududa_torch.utils.nifti import save_nii
+    from pointcloududa_torch.utils.png import write_png
+
+    gt_dir = os.path.join(root, "raw_data", "labels", "lge_test_gt")
+    png_dir = os.path.join(root, "processed", "trainB")
+    os.makedirs(gt_dir)
+    os.makedirs(png_dir)
+    rng = np.random.default_rng(seed)
+    raw = np.array([0, 200, 500, 600], np.int16)
+    for pat_id, (x, y, z) in LGE_TEST.items():
+        labels = _ellipsoids((z, y, x), 3, rng)  # (Z, Y, X): the evaluation's masks are the nii transposed
+        save_nii(os.path.join(gt_dir, f"patient{pat_id}_LGE_manual.nii.gz"), raw[labels].T)
+        rows, cols = np.arange(256) * y // 256, np.arange(256) * x // 256
+        for i in range(z):
+            canvas = labels[i][rows][:, cols].astype(np.float64)
+            img = np.clip(rng.normal(90.0, 30.0, (256, 256, 3)) + 40.0 * canvas[..., None], 0, 255).astype(np.uint8)
+            write_png(os.path.join(png_dir, f"pat_{pat_id}_lge_{i}.png"), img)
+    return sum(z for _, _, z in LGE_TEST.values())
+
+
+def _scaled_err(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def phase_evaluation(torch, dev, rec, card, keep, final_eval):
+    """(j) evaluation at full width on the card, through the evaluate CLIs,
+    the predictor and its export, with no kernel launched."""
+    from pointcloududa_torch.cli import evaluate_mmwhs, evaluate_mscmrseg
+    from pointcloududa_torch.cli.common import restored_generator
+    from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
+    from pointcloududa_torch.eval.predictor import Predictor, export_predictor, load_exported
+    from pointcloududa_torch.train import checkpoint
+    from pointcloududa_torch.train.state import build_generator
+    from pointcloududa_torch.utils.timing import event_ms
+
+    best_ms = [os.path.join(keep, f) for f in os.listdir(keep) if ".d1lr" in f]
+    best_mm = [os.path.join(keep, f) for f in os.listdir(keep) if ".softmax" in f]
+    _require(len(best_ms) == len(best_mm) == 1, f"the best checkpoints of phases (g) and (i): {os.listdir(keep)}")
+    tmp = tempfile.mkdtemp(prefix="pcuda_smoke_eval_")
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        n_slices = _fabricate_lge_test(os.path.join(tmp, "lge"), seed=9) + _fabricate_ct_test(os.path.join(tmp, "ct"), seed=5)
+        print(f"  fabricated {n_slices} test slices in {time.perf_counter() - t0:.1f} s")
+
+        # MS-CMRSeg: phase (i)'s best generator, the reference's evaluation flags, on the card
+        lge_ids = list(LGE_TEST)
+        argv = ["-model_dir", best_ms[0], "-from_name", "-data_dir", os.path.join(tmp, "lge"), "-klc", "-clahe",
+                "-pat_lo", str(lge_ids[0]), "-pat_hi", str(lge_ids[-1] + 1)]
+        plots, per_patient = os.path.join(tmp, "plots"), os.path.join(tmp, "lge.csv")
+        with _eval_clock() as card_run:
+            got, text = _quiet(evaluate_mscmrseg.main, argv + ["-toplot", plots, "-csv", per_patient])
+        _require("Ave Dice:" in text, "no Ave Dice line")
+        _check_scores(got, "MS-CMRSeg")
+        for pat_id, labels in zip(lge_ids, card_run["labels"]):
+            x, y, z = LGE_TEST[pat_id]
+            _require(labels.shape == (z, y, x) and set(np.unique(labels)) <= {0, 200, 500, 600},
+                     f"patient {pat_id}: labels {labels.shape} {np.unique(labels)}")
+        n_plots = len(os.listdir(plots))
+        with open(per_patient) as f:
+            n_rows = len(f.read().strip().splitlines()) - 1
+        _require(n_plots == sum(LGE_TEST[p][2] for p in lge_ids) and n_rows == 3 * len(lge_ids),
+                 f"{n_plots} triptychs, {n_rows} CSV rows")
+        print(_per_patient(card_run, lge_ids, card, "MS-CMRSeg (-klc -clahe)"))
+        print(f"  MS-CMRSeg metrics: {json.dumps(got)}; {n_plots} triptychs, {n_rows} CSV rows")
+
+        # the same weights in the reference's callback layout, as torch 1.4 wrote it
+        net = checkpoint.restore_pytree(best_ms[0])["state"]["net"]
+        released = os.path.join(tmp, "released_generator.pt")
+        torch.save({"epoch": 2, "model_state_dict": net["model"], "optimizer_state_dict": net["optimizer"]}, released,
+                   _use_new_zipfile_serialization=False)
+        with _eval_clock() as again:
+            same, _ = _quiet(evaluate_mscmrseg.main, ["-model_dir", released, "-d4"] + argv[3:])
+        _require(same == got and all(np.array_equal(a, b) for a, b in zip(again["labels"], card_run["labels"])),
+                 "the reference's callback layout gives other labels or metrics")
+        print("  the same weights in the reference's callback layout (legacy serialisation): equal labels and metrics")
+
+        # the same evaluation on the CPU; then, since a generator trained for 2 epochs on fabricated slices labels
+        # nearly every voxel background, an untrained one from a seed (a bare state_dict, the third layout), whose
+        # argmax has work to do everywhere, on the card and on the CPU (Dice only: the distances' time is the host's)
+        with _eval_clock() as cpu_run:
+            _quiet(evaluate_mscmrseg.main, argv, device="cpu")
+        untrained = os.path.join(tmp, "untrained_generator.pt")
+        torch.save(build_generator(mscmrseg_default(d4=True), torch.Generator().manual_seed(0)).state_dict(), untrained)
+        dice_only = ["-model_dir", untrained, "-d4", "-ifhd", "0", "-ifasd", "0"] + argv[3:]
+        with _eval_clock() as card_untrained:
+            _quiet(evaluate_mscmrseg.main, dice_only)
+        with _eval_clock() as cpu_untrained:
+            _quiet(evaluate_mscmrseg.main, dice_only, device="cpu")
+        for what, on_card, on_host in (("trained", card_run, cpu_run), ("untrained", card_untrained, cpu_untrained)):
+            shares = []
+            for i, pat_id in enumerate(lge_ids):
+                a, b = on_card["labels"][i], on_host["labels"][i]
+                shares.append(float((a != b).mean()))
+                _require(shares[-1] <= LABEL_SHARE, f"{what}, patient {pat_id}: card and CPU labels differ in {shares[-1]:.4%} of the voxels")
+                _require(shares[-1] > 0.0 or on_card["scores"][i] == on_host["scores"][i],
+                         f"{what}, patient {pat_id}: equal labels, other metrics")
+            counts = [dict(zip(*(v.tolist() for v in np.unique(labels, return_counts=True)))) for labels in on_card["labels"]]
+            print(f"  card against CPU, {what} generator: label voxels that differ per patient "
+                  f"{', '.join(f'{s:.4%}' for s in shares)} (allowed {LABEL_SHARE:.2%}; metrics equal wherever the labels "
+                  f"are); voxels of each label per patient on the card {counts}; the CPU's forward "
+                  f"{sum(on_host['forward']):.2f} s against the card's {sum(on_card['forward']):.2f} s")
+
+        # MM-WHS: phase (g)'s best generator on its four CT volumes, the architecture from the file's name
+        csv_path = os.path.join(tmp, "mmwhs.csv")
+        with _eval_clock() as ct_run:
+            ct, text = _quiet(evaluate_mmwhs.main, ["-weight_dir", best_mm[0], "-from_name", "-save", "-csv", csv_path,
+                                                     "-model_name", "smoke", "-data_dir", os.path.join(tmp, "ct")])
+        _require("d4lr" in text and "Ave Dice:" in text, "no tag listing or no Ave Dice line")
+        _check_scores(ct, "MM-WHS")
+        _require(ct == final_eval, "the evaluate CLI and phase (g)'s final evaluation give other metrics")
+        with open(csv_path) as f:
+            _require(len(f.read().strip().splitlines()) == 1 + len(CT_TEST), "MM-WHS CSV rows")
+        print(_per_patient(ct_run, CT_TEST, card, "MM-WHS"))
+        print(f"  MM-WHS metrics, equal to phase (g)'s final evaluation: {json.dumps(ct)}")
+
+        # the predictor at both widths, and its export
+        for cfg, best in ((mscmrseg_default(d1=True, d2=True, d4=True), best_ms[0]),
+                          (mmwhs_default(softmax=True, d2=True, d4=True), best_mm[0])):
+            size = cfg.crop_size
+            gen = restored_generator(cfg, best, dev)
+            predictor = Predictor(cfg, gen, batch_size=8)  # no device given: the card
+            x = np.random.default_rng(size).uniform(size=(11, size, size, 3)).astype(np.float32)
+            logits, points = predictor(x)
+            _require(logits.shape == (11, size, size, cfg.n_class) and points.shape == (11, 300, 3)
+                     and bool(np.isfinite(logits).all() and np.isfinite(points).all()), "predictor outputs")
+            tail, tail_points = predictor(x[8:])  # 3 images padded to 8
+            pad_err = max(_scaled_err(tail, logits[8:]), _scaled_err(tail_points, points[8:]))
+            _require(pad_err <= LOGIT_SCALED_TOL, f"the tail padding changed the outputs: {pad_err:.3g}")
+            cpu_logits, cpu_points = Predictor(cfg, gen, batch_size=2, device="cpu")(x[:2])
+            cpu_err = max(_scaled_err(logits[:2], cpu_logits), _scaled_err(points[:2], cpu_points))
+            _require(cpu_err <= LOGIT_SCALED_TOL, f"card against CPU logits: {cpu_err:.3g}")
+            times = [event_ms(lambda: predictor(x[:8]))[1] for _ in range(6)][1:]
+            t0 = time.perf_counter()
+            blob = export_predictor(cfg, gen, batch_size=8)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            run = load_exported(blob)
+            load_s = time.perf_counter() - t0
+            x_dev = torch.from_numpy(x[:8]).to(dev)
+            out_logits, out_points = run(x_dev)
+            exp_err = max(_scaled_err(out_logits.cpu().numpy(), logits[:8]), _scaled_err(out_points.cpu().numpy(), points[:8]))
+            _require(exp_err <= LOGIT_SCALED_TOL, f"the exported program against the predictor: {exp_err:.3g}")
+            fwd = [event_ms(lambda: run(x_dev))[1] for _ in range(6)][1:]
+            print(f"  Predictor nf {cfg.filters}, bs 8, {size}^2, {cfg.n_class} classes + points: {statistics.median(times):.2f} ms a batch "
+                  f"(numpy in and out, between CUDA events; {8e3 / statistics.median(times):.1f} images/s), the exported "
+                  f"program on a batch on the card {statistics.median(fwd):.2f} ms; tail padding {pad_err:.3g}, card "
+                  f"against CPU {cpu_err:.3g}, export against predictor {exp_err:.3g} (max |diff| / max |value|, allowed "
+                  f"{LOGIT_SCALED_TOL}); artifact {len(blob)} bytes, exported in {export_s:.2f} s, loaded in {load_s:.2f} s, "
+                  f"on {card}")
+            del gen, predictor, run
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _launch_counts()
+    _require(not any(counts.values()), f"kernels launched while evaluating: {counts} (eval mode normalises with running statistics)")
+    _record_launches(rec, "evaluation", counts, set())
+    print(f"  launches on the evaluation path: {counts}")
 
 
 def main() -> int:
@@ -1393,18 +1745,27 @@ def main() -> int:
     t0 = time.perf_counter()
     pre_step_ms = phase_mmwhs(torch, dev, rec, smi)
     seconds["f"] = time.perf_counter() - t0
-    print("(g) the training run: fabricated MM-WHS dataset -> cli.train_mmwhs.main (train, validate, checkpoint, resume)")
-    t0 = time.perf_counter()
-    phase_training_run(torch, dev, rec, smi, pre_step_ms)
-    seconds["g"] = time.perf_counter() - t0
-    print("(h) the heavy and medium pipelines: MS-CMRSeg and MM-WHS raw batch -> device preprocess -> train step")
-    t0 = time.perf_counter()
-    heavy_pre_step_ms = phase_heavy(torch, dev, rec, smi, per_step)
-    seconds["h"] = time.perf_counter() - t0
-    print("(i) the MS-CMRSeg training run: fabricated PNG dataset -> cli.train_mscmrseg.main without -aug (heavy), resume")
-    t0 = time.perf_counter()
-    phase_mscmrseg_run(torch, dev, rec, smi, per_step, heavy_pre_step_ms)
-    seconds["i"] = time.perf_counter() - t0
+    keep = tempfile.mkdtemp(prefix="pcuda_smoke_best_")  # the best generators of (g) and (i), evaluated in (j)
+    try:
+        print("(g) the training run: fabricated MM-WHS dataset -> cli.train_mmwhs.main (train, validate, checkpoint, "
+              "evaluate the best, resume)")
+        t0 = time.perf_counter()
+        final_eval = phase_training_run(torch, dev, rec, smi, pre_step_ms, keep)
+        seconds["g"] = time.perf_counter() - t0
+        print("(h) the heavy and medium pipelines: MS-CMRSeg and MM-WHS raw batch -> device preprocess -> train step")
+        t0 = time.perf_counter()
+        heavy_pre_step_ms = phase_heavy(torch, dev, rec, smi, per_step)
+        seconds["h"] = time.perf_counter() - t0
+        print("(i) the MS-CMRSeg training run: fabricated PNG dataset -> cli.train_mscmrseg.main without -aug (heavy), resume")
+        t0 = time.perf_counter()
+        phase_mscmrseg_run(torch, dev, rec, smi, per_step, heavy_pre_step_ms, keep)
+        seconds["i"] = time.perf_counter() - t0
+        print("(j) evaluation: the evaluate CLIs on fabricated test patients, the predictor and its export")
+        t0 = time.perf_counter()
+        phase_evaluation(torch, dev, rec, smi, keep, final_eval)
+        seconds["j"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     print("host seconds by phase: " + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
 
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,12 +1,14 @@
 """Unified entry point: ``python -m pointcloududa_torch <command> [args...]``
-(counterpart of the JAX package's dispatcher). The two training commands are
-ported; the evaluation commands are not yet."""
+(counterpart of the JAX package's dispatcher, with the same four commands:
+the two training runs and the two volume evaluations)."""
 
 import sys
 
 COMMANDS = {
     "train-mscmrseg": "pointcloududa_torch.cli.train_mscmrseg",
     "train-mmwhs": "pointcloududa_torch.cli.train_mmwhs",
+    "evaluate-mscmrseg": "pointcloududa_torch.cli.evaluate_mscmrseg",
+    "evaluate-mmwhs": "pointcloududa_torch.cli.evaluate_mmwhs",
 }
 
 

@@ -1,2 +1,2 @@
 """Command-line entry points (``python -m pointcloududa_torch <command>``):
-the two training CLIs. The evaluation CLIs are not ported yet."""
+the two training CLIs and the two volume-evaluation CLIs."""

@@ -1,6 +1,8 @@
-"""What the two training CLIs share: the kernel selection, the warm restart
+"""What the CLIs share: the kernel selection, the warm restart
 (``-load_weight``) and the full resume (``-resume``), as
-``pointcloududa_tpu/cli/train_mmwhs.py:209-236`` has them."""
+``pointcloududa_tpu/cli/train_mmwhs.py:209-236`` has them; the generator
+that the evaluations restore from a checkpoint file; the refusal of
+``-dtype bfloat16``."""
 
 from __future__ import annotations
 
@@ -20,6 +22,24 @@ def with_kernels(cfg: UDAConfig) -> UDAConfig:
     wrappers compute with the plain versions, so a run with ``device="cpu"``
     takes the same route through the code.)"""
     return dataclasses.replace(cfg, chamfer_impl="pallas", bn_stats_impl="pallas")
+
+
+def check_dtype(args) -> None:
+    """Refuse, before anything is built, the compute type this package does
+    not have yet."""
+    if args.dtype != "float32":
+        raise NotImplementedError(f"-dtype {args.dtype} is not ported: ROADMAP Queue 1 item 13; use -dtype float32")
+
+
+def restored_generator(cfg: UDAConfig, path: str, device):
+    """A fresh generator built from ``cfg`` on ``device``, its weights
+    restored from the checkpoint file ``path`` (the port's trainer layout,
+    the reference's callback layout, or a bare ``state_dict``)."""
+    from pointcloududa_torch.train.state import build_generator
+
+    gen = build_generator(cfg).to(device)
+    restore_net_state(path, gen)
+    return gen
 
 
 def warm_restart(trainer) -> None:

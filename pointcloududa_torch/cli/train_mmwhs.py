@@ -7,15 +7,14 @@ growth, per-discriminator momentum), plus the JAX package's extras. What
 differs here, each said in the flag's help: ``-dtype`` defaults to
 ``float32`` (the port computes in float32 only); ``-no_packed`` parses and
 changes nothing (the port has no packed layout); ``-ndev`` above 1 and
-``-dist`` are not ported; the final evaluation of the best checkpoint on the
-CT test volumes (``train_mmwhs.py:680-686``) is not ported, so a run must say
-``-skip_final_eval`` and is refused before training otherwise. Training runs
-on the current CUDA device with the hand-written kernels (Chamfer, BN
-statistics, farthest-point sampling).
+``-dist`` are not ported. Training runs on the current CUDA device with the
+hand-written kernels (Chamfer, BN statistics, farthest-point sampling); at
+the end, unless ``-skip_final_eval``, the best checkpoint is evaluated on the
+CT test volumes (``train_mmwhs.py:680-686``) on the same device.
 
 Usage:
   python -m pointcloududa_torch.cli.train_mmwhs -bs 16 -ns 2000 -e 200 \
-      -softmax -d2 -d4 -aug light -data_dir ./input -skip_final_eval
+      -softmax -d2 -d4 -aug light -data_dir ./input
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from __future__ import annotations
 import argparse
 
 from pointcloududa_torch import config as _config
-from pointcloududa_torch.cli.common import resume_and_fit, warm_restart, with_kernels
+from pointcloududa_torch.cli.common import restored_generator, resume_and_fit, warm_restart, with_kernels
 from pointcloududa_torch.config import appendix
 
 
@@ -116,9 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "-skip_final_eval",
         action="store_true",
-        help="required: the final evaluation of the best checkpoint on the CT test "
-        "volumes is not ported (ROADMAP Queue 1 item 11); without this flag the run "
-        "is refused before training",
+        help="do not evaluate the best checkpoint on the CT test volumes after training",
     )
     p.add_argument(
         "-resume",
@@ -189,11 +186,6 @@ def check_ported(args) -> None:
     """Refuse, before anything is built, what this package does not do yet."""
     if args.ndev > 1 or args.dist:
         raise NotImplementedError("-ndev above 1 and -dist (data-parallel training) are not ported: ROADMAP Queue 1 item 12")
-    if not args.skip_final_eval:
-        raise NotImplementedError(
-            "the final evaluation of the best checkpoint (eval/volume.py) is not ported: ROADMAP Queue 1 "
-            "item 11; pass -skip_final_eval to train without it"
-        )
 
 
 def main(argv=None, device=None):
@@ -223,6 +215,15 @@ def main(argv=None, device=None):
         # pre-train validation after the restore (train_mmwhs.py:584-600)
         trainer.initial_validation()
     resume_and_fit(trainer, args)
+
+    best = trainer.ckpt_gen.final_best_path
+    if not args.skip_final_eval and best:
+        # evaluate the best checkpoint (train_mmwhs.py:680-686) in a fresh
+        # generator: the trainer's own holds the last epoch's weights
+        from pointcloududa_torch.eval.volume import evaluate_mmwhs
+
+        print("Evaluate the best model:", best)
+        evaluate_mmwhs(cfg, restored_generator(cfg, best, trainer.device), data_dir=cfg.data_dir, device=trainer.device)
 
 
 if __name__ == "__main__":

@@ -75,14 +75,35 @@ def net_state(module: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer
     return state
 
 
+def _reference_optimizer_state(opt_state: dict, file_order: list, module: torch.nn.Module) -> dict:
+    """The reference's ``optimizer_state_dict`` with its parameter indices
+    moved to ``module``'s order. The reference's optimisers list
+    ``module.parameters()``, which is the order of the parameter entries of
+    its ``model_state_dict`` (``file_order``); the port's modules carry the
+    reference's names, so each index is moved by name (the weights loaded
+    strictly first, so both name the same parameters)."""
+    ours = [name for name, _ in module.named_parameters()]
+    to_ours = {i: ours.index(name) for i, name in enumerate(file_order)}
+    # a loaded group's i-th index names the optimiser's i-th parameter, which
+    # is the module's i-th: so each group lists its indices in the module's order
+    groups = [dict(g, params=sorted(to_ours[i] for i in g["params"])) for g in opt_state["param_groups"]]
+    return {"state": {to_ours[i]: st for i, st in opt_state["state"].items()}, "param_groups": groups}
+
+
 def restore_net_state(path: str, module: torch.nn.Module, optimizer: Optional[torch.optim.Optimizer] = None) -> torch.nn.Module:
     """Load one network's weights (and its optimiser's state, when an
-    optimiser is given and the file has one) from a checkpoint file.
+    optimiser is given and the file has one) from a checkpoint file in any
+    of three layouts:
 
-    Tolerates both the trainer layout ``{"epoch", "state": {"net": ...}}``
-    and a bare ``state_dict``, the same dict-or-raw leniency as the
-    reference's loaders (``evaluate_mscmrseg.py:109-115``): the reference's
-    released ``.pt`` files are bare.
+    - the port's trainer layout ``{"epoch", "state": {"net": {"model",
+      "optimizer"}}}``;
+    - the reference's callback layout ``{"epoch", "model_state_dict",
+      "optimizer_state_dict"}`` (``src/utils/callbacks.py:75-80``; its
+      released ``.pt`` files, written by torch 1.4), unwrapped as the JAX
+      package's ``utils/torch_import.py:unwrap_payload`` does. Its optimiser
+      state is indexed in the reference's parameter order, and is moved to
+      the module's order by parameter name;
+    - a bare ``state_dict``.
     """
     payload = restore_pytree(path)
     if isinstance(payload, dict) and "state" in payload and "net" in payload["state"]:
@@ -90,6 +111,14 @@ def restore_net_state(path: str, module: torch.nn.Module, optimizer: Optional[to
         module.load_state_dict(net["model"])
         if optimizer is not None and "optimizer" in net:
             optimizer.load_state_dict(net["optimizer"])
+    elif isinstance(payload, dict) and "model_state_dict" in payload:
+        weights = payload["model_state_dict"]
+        module.load_state_dict(weights)
+        opt_state = payload.get("optimizer_state_dict")
+        if optimizer is not None and opt_state is not None:
+            params = {name for name, _ in module.named_parameters()}
+            order = [name for name in weights if name in params]
+            optimizer.load_state_dict(_reference_optimizer_state(opt_state, order, module))
     else:
         module.load_state_dict(payload)
     return module

@@ -53,13 +53,11 @@ def check_config(cfg: UDAConfig) -> None:
         )
 
 
-def build_models(cfg: UDAConfig, generator: Optional[torch.Generator] = None):
-    """Instantiate the generator and the enabled discriminators, drawing
-    their initial weights from ``generator`` (a CPU generator: the modules
-    are built in host memory and :func:`create_train_state` moves them to
-    its device)."""
+def build_generator(cfg: UDAConfig, generator: Optional[torch.Generator] = None) -> SegmentationPointModel:
+    """Instantiate the segmentation generator alone (what evaluation needs),
+    drawing its initial weights from ``generator`` (a CPU generator)."""
     check_config(cfg)
-    gen = SegmentationPointModel(
+    return SegmentationPointModel(
         filters=cfg.filters,
         in_channels=cfg.in_channels,
         n_block=cfg.n_block,
@@ -74,6 +72,14 @@ def build_models(cfg: UDAConfig, generator: Optional[torch.Generator] = None):
         bn_kernel=cfg.bn_stats_impl == "pallas",
         generator=generator,
     )
+
+
+def build_models(cfg: UDAConfig, generator: Optional[torch.Generator] = None):
+    """Instantiate the generator and the enabled discriminators, drawing
+    their initial weights from ``generator`` (a CPU generator: the modules
+    are built in host memory and :func:`create_train_state` moves them to
+    its device)."""
+    gen = build_generator(cfg, generator)
     d1 = UncertaintyDiscriminator(cfg.n_class, cfg.heinit, cfg.extd1, generator) if cfg.d1 else None
     d2 = UncertaintyDiscriminator(cfg.n_class, cfg.heinit, cfg.extd2, generator) if cfg.d2 else None
     d4 = PointNetCls(feature_transform=cfg.ft, ext=cfg.extd4, generator=generator) if cfg.d4 else None

@@ -120,6 +120,107 @@ def test_bare_state_dict_restores(tmp_path):
         ckpt.restore_net_state(path, torch.nn.Linear(3, 4))
 
 
+def _as_torch_1_4(opt_state: dict) -> dict:
+    """An optimiser state as torch 1.4 wrote it: ``step`` a Python int."""
+    state = {i: {k: (int(v) if k == "step" else v) for k, v in st.items()} for i, st in opt_state["state"].items()}
+    return {"state": state, "param_groups": opt_state["param_groups"]}
+
+
+def _trained_discriminator(seed):
+    from pointcloududa_torch.models import UncertaintyDiscriminator
+
+    torch.manual_seed(seed)
+    module = UncertaintyDiscriminator(4)
+    opt = torch.optim.Adam(module.parameters(), lr=1e-3, betas=(0.9, 0.99))
+    module(torch.randn(2, 32, 32, 4)).sum().backward()
+    opt.step()
+    return module, opt
+
+
+def _write_layout(path, layout, module, opt):
+    if layout == "trainer":
+        ckpt.save_pytree(path, {"epoch": 3, "state": {"net": ckpt.net_state(module, opt), "config": None}})
+    elif layout == "callback":  # the reference's ModelCheckPointCallback (callbacks.py:75-80) under torch 1.4
+        torch.save({"epoch": 3, "model_state_dict": module.state_dict(), "optimizer_state_dict": _as_torch_1_4(opt.state_dict())},
+                   path, _use_new_zipfile_serialization=False)
+    else:
+        torch.save(module.state_dict(), path)
+
+
+@pytest.mark.parametrize("layout", ["trainer", "callback", "bare"])
+def test_restore_net_state_reads_three_layouts(tmp_path, layout):
+    """The port's trainer layout, the reference's callback layout (written as
+    torch 1.4 wrote it, with the legacy serialisation) and a bare
+    ``state_dict``: the weights come back bit for bit, and the optimiser's
+    moments too wherever the file has them."""
+    module, opt = _trained_discriminator(0)
+    path = str(tmp_path / "d1.pt")
+    _write_layout(path, layout, module, opt)
+    other, other_opt = _trained_discriminator(1)
+    ckpt.restore_net_state(path, other, other_opt)
+    for (k, a), b in zip(module.state_dict().items(), other.state_dict().values()):
+        assert torch.equal(a, b), k
+    want, got = opt.state_dict()["state"], other_opt.state_dict()["state"]
+    if layout == "bare":
+        assert not torch.equal(got[0]["exp_avg"], want[0]["exp_avg"])  # nothing to restore: left as it was
+    else:
+        for i, st in want.items():
+            for k, v in st.items():
+                assert torch.equal(torch.as_tensor(got[i][k]), torch.as_tensor(v)), (i, k)
+        other.zero_grad()
+        other(torch.randn(2, 32, 32, 4)).sum().backward()
+        other_opt.step()  # the restored state steps (a torch 1.4 int step included)
+
+
+def test_reference_optimizer_state_is_placed_by_parameter_name(tmp_path):
+    """The reference's optimiser lists its module's parameters in the order
+    of its ``model_state_dict``. A file whose modules registered in another
+    order than the port's (here reversed) has its moments moved to the
+    parameters of the same names."""
+    module, opt = _trained_discriminator(2)
+    names = [n for n, _ in module.named_parameters()]
+    order = names[::-1]  # the writer's registration order
+    sd = module.state_dict()
+    by_name = dict(zip(names, opt.state_dict()["state"].values()))
+    state = {i: by_name[n] for i, n in enumerate(order)}
+    groups = [dict(g, params=list(range(len(order)))) for g in opt.state_dict()["param_groups"]]
+    path = str(tmp_path / "reordered.pt")
+    torch.save({"epoch": 1, "model_state_dict": {n: sd[n] for n in order},
+                "optimizer_state_dict": _as_torch_1_4({"state": state, "param_groups": groups})},
+               path, _use_new_zipfile_serialization=False)
+    other, other_opt = _trained_discriminator(3)
+    ckpt.restore_net_state(path, other, other_opt)
+    got = other_opt.state_dict()["state"]
+    for i, name in enumerate(names):
+        assert torch.equal(got[i]["exp_avg"], by_name[name]["exp_avg"]), name
+    ckpt.restore_net_state(path, other)  # weights only: no optimiser, nothing to place
+    assert all(torch.equal(a, b) for a, b in zip(module.state_dict().values(), other.state_dict().values()))
+
+
+def test_load_weight_reads_the_reference_callback_layout(tmp_path):
+    """``-load_weight`` (``cli/common.py:warm_restart``) from files in the
+    reference's callback layout, written with torch 1.4's serialisation under
+    the trainer's names: every network and its optimiser come back."""
+    from pointcloududa_torch.cli import common
+
+    source, target = _trainer(tmp_path, "src"), _trainer(tmp_path, "dst")
+    source.train_epoch()
+    callbacks = (target.ckpt_gen, target.ckpt_d1, target.ckpt_d2, target.ckpt_d4)
+    for cb, module, opt in zip(callbacks, source.state.models, source.state.optimizers):
+        if cb is not None:
+            os.makedirs(os.path.dirname(cb.model_name), exist_ok=True)
+            _write_layout(cb.model_name, "callback", module, opt)
+    common.warm_restart(target)
+    for m1, m2, o1, o2 in zip(source.state.models, target.state.models, source.state.optimizers, target.state.optimizers):
+        if m1 is None:
+            continue
+        for (k, a), b in zip(m1.state_dict().items(), m2.state_dict().values()):
+            assert torch.equal(a, b), k
+        for i, st in o1.state_dict()["state"].items():
+            assert torch.equal(o2.state_dict()["state"][i]["exp_avg_sq" if "exp_avg_sq" in st else "momentum_buffer"],
+                               st["exp_avg_sq" if "exp_avg_sq" in st else "momentum_buffer"]), i
+
+
 def test_save_is_atomic_and_takes_tensors_and_python_scalars_only(tmp_path):
     path = str(tmp_path / "deep" / "snap")
     ckpt.save_pytree(path, {"epoch": 1, "x": torch.arange(3)})

@@ -104,12 +104,11 @@ def no_training(monkeypatch):
     [
         (train_mmwhs, ["-skip_final_eval", "-ndev", "4"], "item 12"),
         (train_mmwhs, ["-skip_final_eval", "-dist"], "item 12"),
-        (train_mmwhs, ["-softmax", "-d2"], "item 11"),  # no -skip_final_eval: refused before, not after, training
         (train_mscmrseg, ["-aug", "-ndev", "2"], "item 12"),
         (train_mscmrseg, ["-aug", "-dist"], "item 12"),
         (train_mscmrseg, ["-aug", "-host_aug"], "items 9 and 10"),
     ],
-    ids=["mmwhs-ndev", "mmwhs-dist", "mmwhs-final-eval", "mscmrseg-ndev", "mscmrseg-dist", "mscmrseg-host-aug"],
+    ids=["mmwhs-ndev", "mmwhs-dist", "mscmrseg-ndev", "mscmrseg-dist", "mscmrseg-host-aug"],
 )
 def test_flags_that_are_not_ported_fail_before_training(no_training, module, argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
@@ -184,6 +183,58 @@ def test_mmwhs_cli_trains_resumes_and_warm_restarts(tmp_path, capsys, monkeypatc
     assert "valid_lge_dice:" in pre and "test_lge_dice:" in pre  # the validation before training, in the reference's format
 
 
+def test_mmwhs_cli_evaluates_its_best_checkpoint_after_training(tmp_path, capsys, monkeypatch):
+    """The reference's MM-WHS command without ``-skip_final_eval``: ``main``
+    trains an epoch on the CPU (96^2, 8 filters, D2 + D4), then evaluates the
+    renamed best checkpoint on the four CT test volumes (96^2 x 3 slices of
+    noise around two labelled boxes, written by the port's ``save_nii``) in a
+    fresh generator, and prints ``Ave Dice``; its metrics equal those of
+    ``evaluate_mmwhs`` called on that file, and the generator it evaluated
+    holds that file's weights, not the trainer's last ones."""
+    import numpy as np
+
+    from pointcloududa_torch.cli.common import restored_generator
+    from pointcloududa_torch.eval import volume
+    from pointcloududa_torch.utils.nifti import save_nii
+
+    root = make_mmwhs_dataset(tmp_path / "d", size=96, n=4)
+    base = os.path.join(root, "PnpAda_release_data", "test_ct_image_n_labels")
+    os.makedirs(base)
+    rng = np.random.default_rng(0)
+    for pat_id in (1003, 1008, 1014, 1019):
+        gt = np.zeros((96, 96, 3), np.int16)
+        gt[20:60, 20:60], gt[50:80, 40:70] = 1, 3
+        save_nii(os.path.join(base, f"image_ct_{pat_id}.nii.gz"), (rng.normal(size=gt.shape) + gt).astype(np.float32))
+        save_nii(os.path.join(base, f"gth_ct_{pat_id}.nii.gz"), gt)
+    preset = port_config.mmwhs_default
+    monkeypatch.setattr(port_config, "mmwhs_default", lambda **kw: preset(**{**kw, "crop_size": 96, "fc_inch": 1}))
+    runs, real = [], volume.evaluate_mmwhs
+
+    def recording(cfg, gen, **kw):
+        runs.append((cfg, gen, kw, real(cfg, gen, **kw)))
+        return runs[-1][-1]
+
+    monkeypatch.setattr(volume, "evaluate_mmwhs", recording)
+    train_mmwhs.main(["-bs", "2", "-ns", "4", "-e", "2", "-nf", "8", "-softmax", "-d2", "-d4", "-data_dir", root, "-workdir",
+                      str(tmp_path / "w"), "-logdir", str(tmp_path / "r"), "-workers", "1"], device="cpu")
+    out = capsys.readouterr().out
+    assert "[2/2]" in out and "Evaluate the best model:" in out and "Ave Dice:" in out
+    best = out.split("Evaluate the best model: ")[1].splitlines()[0]
+    assert os.path.basename(best).startswith("best_unet_model_checkpoint_") and ".Scr" in best and os.path.isfile(best)
+    assert len(runs) == 1
+    cfg, gen, kw, got = runs[0]
+    assert kw == dict(data_dir=root, device=torch.device("cpu"))
+    payload = ckpt.restore_pytree(best)
+    for name, value in payload["state"]["net"]["model"].items():
+        assert torch.equal(gen.state_dict()[name], value), name
+    last = ckpt.restore_pytree(str(tmp_path / "w" / f"unet_model_checkpoint_{out.splitlines()[0]}"))["state"]["net"]["model"]
+    if payload["epoch"] != 2:  # the best epoch was not the last: the trainer's weights are not the ones evaluated
+        assert any(not torch.equal(last[k], v) for k, v in gen.state_dict().items())
+    again = real(cfg, restored_generator(cfg, best, "cpu"), data_dir=root, device="cpu", toprint=False)
+    assert got == again and set(got) == {"myo", "la", "lv", "aa"}
+    assert all(np.isfinite(v) for m in got.values() for v in m.values())
+
+
 def test_mscmrseg_cli_trains_resumes_and_warm_restarts(tmp_path, capsys):
     """The argv of tests/test_cli_pipeline.py (``-aug`` is store_false: no
     augmentation), through the PNG adapter."""
@@ -216,9 +267,12 @@ def test_main_needs_a_card_unless_told(tmp_path):
 def test_dispatcher_lists_the_two_train_commands():
     env = {**os.environ, "PYTHONPATH": ROOT}
     proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "--help"], cwd=ROOT, capture_output=True, text=True, env=env, timeout=120)
-    assert proc.returncode == 0 and "train-mscmrseg, train-mmwhs" in proc.stdout
-    proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "evaluate-mmwhs"], cwd=ROOT, capture_output=True, text=True, env=env, timeout=120)
-    assert proc.returncode == 2
+    assert proc.returncode == 0 and "train-mscmrseg, train-mmwhs, evaluate-mscmrseg, evaluate-mmwhs" in proc.stdout
+    proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "serve"], cwd=ROOT, capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 2 and "commands:" in proc.stdout
+    proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "evaluate-mmwhs", "-h"], cwd=ROOT, capture_output=True, text=True,
+                          env=env, timeout=120)
+    assert proc.returncode == 0 and "-weight_dir" in proc.stdout, proc.stderr
     proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "train-mmwhs", "-ndev", "2", "-skip_final_eval"], cwd=ROOT,
                           capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode != 0 and "ROADMAP Queue 1 item 12" in proc.stderr

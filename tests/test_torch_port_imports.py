@@ -125,9 +125,21 @@ def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
     files = glob.glob(os.path.join(ROOT, "pointcloududa_torch", "**", "*.py"), recursive=True)
     assert len(files) >= 40
     for new in ("data/loader.py", "data/build.py", "train/checkpoint.py", "cli/train_mmwhs.py", "cli/train_mscmrseg.py",
-                "cli/common.py", "__main__.py", "parallel/mesh.py", "utils/logging.py", "utils/timer.py"):
+                "cli/common.py", "__main__.py", "parallel/mesh.py", "utils/logging.py", "utils/timer.py", "utils/nifti.py",
+                "ops/metrics.py", "ops/postprocess.py", "ops/clahe.py", "eval/volume.py", "eval/predictor.py",
+                "cli/evaluate_mscmrseg.py", "cli/evaluate_mmwhs.py"):
         assert os.path.join(ROOT, "pointcloududa_torch", new) in files, new
     bad = {os.path.relpath(p, ROOT): [m for m in _imported_names(p) if m.split(".")[0] in REFUSED] for p in files}
+    assert not {p: m for p, m in bad.items() if m}
+
+
+def test_nothing_of_the_port_imports_opencv_pil_or_matplotlib():
+    """The port depends on none of them: it decodes and writes PNGs
+    with ``utils/png.py``, resizes and equalises in numpy."""
+    files = glob.glob(os.path.join(ROOT, "pointcloududa_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    bad = {os.path.relpath(p, ROOT): [m for m in _imported_names(p) if m.split(".")[0] in ("cv2", "PIL", "matplotlib")]
+           for p in files}
     assert not {p: m for p, m in bad.items() if m}
 
 
@@ -210,6 +222,27 @@ def test_entry_points_need_a_card_unless_told():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             create_train_state(cfg)
 
+    # the evaluation's entry points: the evaluate CLIs, the volume forward,
+    # the predictor, its export and the loader of an artifact
+    import numpy as np
+
+    from pointcloududa_torch.cli import evaluate_mmwhs, evaluate_mscmrseg
+    from pointcloududa_torch.eval import predictor, volume
+
+    gen = state.models[0]
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    assert predictor.Predictor(cfg, gen, batch_size=1, device="cpu")(x)[0].shape == (1, 32, 32, 4)
+    assert volume.make_volume_forward(gen, "cpu", bs=1)(x).shape == (1, 32, 32, 4)
+    blob = predictor.export_predictor(cfg, gen, batch_size=1, device="cpu")
+    assert tuple(predictor.load_exported(blob, device="cpu")(x).shape) == (1, 32, 32, 4)
+    if not torch.cuda.is_available():
+        for call in (lambda: predictor.Predictor(cfg, gen), lambda: volume.make_volume_forward(gen),
+                     lambda: predictor.export_predictor(cfg, gen), lambda: predictor.load_exported(blob),
+                     lambda: evaluate_mscmrseg.main(["-model_dir", "no-such-file"]),
+                     lambda: evaluate_mmwhs.main(["-weight_dir", "no-such-file"])):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+
 
 # ---- the port's own copies of the JAX package's jax-free modules ------------
 
@@ -239,6 +272,13 @@ def _code(obj):
         ("train.checkpoint", ["EarlyStoppingCallback"]),
         ("utils.timer", ["timeit", "TimeChecker"]),
         ("data.loader", ["shard_index_batch", "PairedIterator"]),
+        ("utils.nifti", ["load_nii", "save_nii", "_open"]),
+        ("ops.metrics", ["dice_binary", "_surface_distances", "hausdorff_distance", "average_surface_distance", "evaluate",
+                         "metrics2", "compute_metrics_on_files", "metrics_mmwhs_volume"]),
+        # resize_volume is numpy here (OpenCV's INTER_AREA there): held against OpenCV in test_torch_port_eval.py
+        ("ops.postprocess", ["to_categorical", "soft_to_hard_pred", "keep_largest_connected_components", "crop_volume",
+                             "reconstruct_volume"]),
+        ("eval.volume", ["read_mmwhs_volume"]),
     ],
 )
 def test_copied_definitions_run_the_jax_packages_code(module, names):
