@@ -17,7 +17,10 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       of 1 to 8 blocks beside the clusters of each size the card runs at once;
   (b) BN statistics: forward and backward kernels against their plain
       versions, and timed, at every BatchNorm shape of the generator on
-      both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS);
+      both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS), for a
+      float32 and a bfloat16 activation (f32 statistics at the f32
+      sum-order tolerance, a bf16 dx within 1 bf16 ulp of the plain
+      version's, both bit-equal on a repeat), and a float16 one refused;
   (c) the MS-CMRSeg triple-adversary train step (generator + D1 + D2 + D4,
       bs 16, 224^2, float32, both kernels on): two steps on synthetic
       batches, every metric finite, every kernel launched, the BatchNorm
@@ -94,8 +97,9 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       validation batches, ms per iteration beside phase (h)'s preprocess +
       step), and, with cuDNN deterministic, a resumed epoch 3 that must equal
       an uninterrupted run's bit for bit (phase (g)'s code);
-  (j) evaluation at full width, on test patients fabricated into a temporary
-      directory that the phase removes: ``cli.evaluate_mscmrseg.main -klc
+  (j) evaluation at full width, in float32, on test patients fabricated
+      into a temporary directory (removed after phase (k), which reads them
+      again): ``cli.evaluate_mscmrseg.main -klc
       -clahe -toplot -csv`` on phase (i)'s best generator (nf 32, 224^2) over
       two LGE patients (256^2 PNG slices; ground truth 480 x 480 x 12, which
       the resize enlarges to, and 208 x 240 x 10, which it shrinks to by
@@ -114,13 +118,32 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       per second) and ``export_predictor`` -> ``load_exported`` on the card
       against it (artifact bytes, load seconds); per patient the forward's
       and the host's seconds, the host's by step; and no kernel launched on
-      the evaluation path (eval mode normalises with running statistics).
+      the evaluation path (eval mode normalises with running statistics);
+  (k) ``compute_dtype="bfloat16"`` at full width, every kernel on: the
+      MS-CMRSeg D1+D2+D4 step (bs 16, 224^2) and the MM-WHS softmax D2+D4
+      raw batch -> device preprocess (FPS) -> step (bs 16, 256^2), each
+      five times in float32 and five in bfloat16 in this call (median step
+      time, peak memory, the BatchNorm inputs bf16 at phase (b)'s shapes,
+      the bf16 BN kernels launched 32 times a step and the f32 ones never),
+      then once more under the profiler (device time by kernel kind and the
+      device's idle share);
+      one bf16 step of each, kernels against plain from identical weights,
+      at 5x the f32 tolerance (25x for ``d4_loss``); the bf16 eval step
+      (f32 logits); ``cli.train_mscmrseg.main`` at its default dtype
+      (bfloat16) and pipeline (heavy) as phase (i) runs it, its resumed
+      epoch 3 bit-equal to an uninterrupted run's; both evaluate CLIs with
+      ``-dtype bfloat16`` on phase (j)'s patients (phase (i)'s and (g)'s
+      generators and the untrained one: seconds per patient, the share of
+      label voxels that differ from phase (j)'s float32 labels), and the
+      bf16-trained generator evaluated in float32 and in bfloat16; no
+      kernel launched while evaluating.
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
 plain version's, the least time the card could take for the same bytes and
 operations, and a library call's time where one computes the same function;
-``by_path`` holds each path's launches (``evaluation``: 0 for every kernel)
+``by_path`` holds each path's launches (``evaluation``, ``evaluation_bf16``: 0
+for every kernel)
 and, where a kernel's shapes differ
 between the paths, its numbers at that path's largest shape);
 the last line is
@@ -128,7 +151,10 @@ the last line is
 device the script exits non-zero and prints no result.
 
 TF32 is switched off for convolutions and matrix products, so float32 means
-float32 on both sides of every comparison.
+float32 on both sides of every comparison. Phases (c) to (j) run in float32,
+named explicitly (``compute_dtype="float32"``, ``-dtype float32``: the
+training CLIs default to bfloat16), so their numbers compare with earlier
+runs of this script; phase (k) runs bfloat16.
 """
 
 from __future__ import annotations
@@ -206,7 +232,17 @@ KERNELS = {
         route="cuda", source="pointcloududa_torch/csrc/fps.cu",
         replaces="pointcloududa_tpu/ops/fps_pallas.py:95",
     ),
+    # the BN-statistics kernels' bfloat16 instantiations (compute_dtype="bfloat16")
+    "bn_stats_forward_bf16": dict(
+        route="cuda", source="pointcloududa_torch/csrc/bn_stats.cu",
+        replaces="pointcloududa_tpu/ops/bn_pallas.py:96",
+    ),
+    "bn_stats_backward_bf16": dict(
+        route="cuda", source="pointcloududa_torch/csrc/bn_stats.cu",
+        replaces="pointcloududa_tpu/ops/bn_pallas.py:123",
+    ),
 }
+BF16_ROWS = {"bn_stats_forward_bf16", "bn_stats_backward_bf16"}
 
 
 def _bound(nbytes: float, flops: float, chain_ms: float = 0.0) -> dict:
@@ -390,63 +426,90 @@ BN_SHAPES = {
 }
 
 
+def _bf16_ulps(torch, got, want) -> float:
+    """The largest |got - want| of two bf16 tensors in bf16 ulps at ``want``."""
+    want = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0**-126))) - 7)
+    return float(((got.float() - want).abs() / ulp).max())
+
+
 def phase_bn(torch, dev, rec):
     """(b) BN-statistics kernels against their plain versions, on the shapes
-    of both paths."""
+    of both paths, for a float32 and a bfloat16 activation (the bf16
+    instantiation reads 2 bytes an element and widens in registers; its
+    statistics are f32, its dx bf16)."""
     from pointcloududa_torch.ops import bn_kernel as bk
     from pointcloududa_torch.utils.timing import graph_ms
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    for path, shapes in BN_SHAPES.items():
-        fwd_err = bwd_err = 0.0
-        for shape in shapes:
-            x = torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2
-            c = shape[1]
-            mk, qk = bk.stats_forward(x)
-            mp, qp = bk.stats_forward_plain(x)
-            # f32 sums over up to 1,048,576 values in another order than PyTorch's
-            for got, want in ((mk, mp), (qk, qp)):
-                err = _max_err(got, want)
-                _require(err <= 1e-5 + 1e-5 * float(want.abs().max()), f"BN stats differ by {err} at {shape}")
-                fwd_err = max(fwd_err, err)
-            mk2, qk2 = bk.stats_forward(x)
-            _require(torch.equal(mk, mk2) and torch.equal(qk, qk2), "BN stats not bit-reproducible")
-            gm = torch.randn(c, generator=gen, device=dev)
-            gq = torch.randn(c, generator=gen, device=dev)
-            dk = bk.stats_backward(x, gm, gq)
-            dp = bk.stats_backward_plain(x, gm, gq)
-            err = _max_err(dk, dp)
-            _require(err <= 1e-6 * (1.0 + float(dp.abs().max())), f"BN backward differs by {err} at {shape}")
-            bwd_err = max(bwd_err, err)
-            # forward: x in, 2 C floats out, 3 operations per element; backward:
-            # x and 2 C floats in, dx out, 3 operations per element
-            fwd = dict(
-                shape=list(shape), ms=graph_ms(lambda: bk.stats_forward(x)),
-                plain_ms=graph_ms(lambda: bk.stats_forward_plain(x)),
-                # the one PyTorch call that computes the forward's function; a
-                # yardstick only, the port never calls it
-                library_ms=graph_ms(lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)),
-                **_bound(x.numel() * 4 + 2 * c * 4, 3 * x.numel()),
-            )
-            bwd = dict(
-                shape=list(shape), ms=graph_ms(lambda: bk.stats_backward(x, gm, gq)),
-                plain_ms=graph_ms(lambda: bk.stats_backward_plain(x, gm, gq)), library_ms=None,
-                **_bound(2 * x.numel() * 4 + 2 * c * 4, 3 * x.numel()),
-            )
-            print(f"  bn_stats {path} {shape}: fwd kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
-                  f"torch.var_mean {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}), bwd kernel {bwd['ms']:.4f} ms "
-                  f"(plain {bwd['plain_ms']:.4f}, bound {bwd['bound_ms']:.4f})")
-            if shape == shapes[0]:  # the kernel table carries each path's largest shape
-                rec["bn_stats_forward"].setdefault("by_path", {})[path] = fwd
-                rec["bn_stats_backward"].setdefault("by_path", {})[path] = bwd
-            del x, dk, dp
-        rec["bn_stats_forward"]["by_path"][path]["max_abs_err"] = fwd_err
-        rec["bn_stats_backward"]["by_path"][path]["max_abs_err"] = bwd_err
-        print(f"  bn_stats {path} max|err| over its four shapes: fwd {fwd_err:.3g}, bwd {bwd_err:.3g}")
-    # the top-level numbers of a row: the largest shape of all, the error over both paths
-    for name in ("bn_stats_forward", "bn_stats_backward"):
-        by_path = rec[name]["by_path"]
-        rec[name].update(by_path["mmwhs"], max_abs_err=max(v["max_abs_err"] for v in by_path.values()))
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        fwd_name, bwd_name = "bn_stats_forward" + suffix, "bn_stats_backward" + suffix
+        size = torch.finfo(dtype).bits // 8
+        for path, shapes in BN_SHAPES.items():
+            fwd_err = bwd_err = 0.0
+            for shape in shapes:
+                x = (torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2).to(dtype)
+                c = shape[1]
+                mk, qk = bk.stats_forward(x)
+                mp, qp = bk.stats_forward_plain(x)
+                # f32 sums over up to 1,048,576 values in another order than PyTorch's
+                for got, want in ((mk, mp), (qk, qp)):
+                    err = _max_err(got, want)
+                    _require(got.dtype == torch.float32 and err <= 1e-5 + 1e-5 * float(want.abs().max()),
+                             f"BN stats ({dtype}) differ by {err} at {shape}")
+                    fwd_err = max(fwd_err, err)
+                mk2, qk2 = bk.stats_forward(x)
+                _require(torch.equal(mk, mk2) and torch.equal(qk, qk2), f"BN stats ({dtype}) not bit-reproducible")
+                gm = torch.randn(c, generator=gen, device=dev)
+                gq = torch.randn(c, generator=gen, device=dev)
+                dk = bk.stats_backward(x, gm, gq)
+                dp = bk.stats_backward_plain(x, gm, gq)
+                err = _max_err(dk, dp)
+                if dtype == torch.float32:
+                    _require(err <= 1e-6 * (1.0 + float(dp.abs().max())), f"BN backward differs by {err} at {shape}")
+                else:  # both compute dx in f32 and round it once to bf16
+                    ulps = _bf16_ulps(torch, dk, dp)
+                    _require(dk.dtype == torch.bfloat16 and ulps <= 1.0, f"BN backward (bf16) {ulps} ulps from plain at {shape}")
+                _require(torch.equal(dk, bk.stats_backward(x, gm, gq)), f"BN backward ({dtype}) not bit-reproducible")
+                bwd_err = max(bwd_err, err)
+                # forward: x in, 2 C floats out, 3 operations per element; backward:
+                # x and 2 C floats in, dx out, 3 operations per element
+                fwd = dict(
+                    shape=list(shape), dtype=str(dtype).split(".")[1], ms=graph_ms(lambda: bk.stats_forward(x)),
+                    plain_ms=graph_ms(lambda: bk.stats_forward_plain(x)),
+                    # the one PyTorch call that computes the forward's function; a
+                    # yardstick only, the port never calls it (of a bf16 x it
+                    # returns bf16 statistics: rounded, where the kernel's are f32)
+                    library_ms=graph_ms(lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)),
+                    **_bound(x.numel() * size + 2 * c * 4, 3 * x.numel()),
+                )
+                bwd = dict(
+                    shape=list(shape), dtype=fwd["dtype"], ms=graph_ms(lambda: bk.stats_backward(x, gm, gq)),
+                    plain_ms=graph_ms(lambda: bk.stats_backward_plain(x, gm, gq)), library_ms=None,
+                    **_bound(2 * x.numel() * size + 2 * c * 4, 3 * x.numel()),
+                )
+                print(f"  bn_stats {fwd['dtype']} {path} {shape}: fwd kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
+                      f"torch.var_mean {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}), bwd kernel {bwd['ms']:.4f} ms "
+                      f"(plain {bwd['plain_ms']:.4f}, bound {bwd['bound_ms']:.4f})")
+                if shape == shapes[0]:  # the kernel table carries each path's largest shape
+                    rec[fwd_name].setdefault("by_path", {})[path + suffix] = fwd
+                    rec[bwd_name].setdefault("by_path", {})[path + suffix] = bwd
+                del x, dk, dp
+            rec[fwd_name]["by_path"][path + suffix]["max_abs_err"] = fwd_err
+            rec[bwd_name]["by_path"][path + suffix]["max_abs_err"] = bwd_err
+            print(f"  bn_stats {dtype} {path} max|err| over its four shapes: fwd {fwd_err:.3g}, bwd {bwd_err:.3g}")
+        # the top-level numbers of a row: the largest shape of all, the error over both paths
+        for name in (fwd_name, bwd_name):
+            by_path = rec[name]["by_path"]
+            rec[name].update(by_path["mmwhs" + suffix], max_abs_err=max(v["max_abs_err"] for v in by_path.values()))
+    half = torch.zeros((4, 8, 6, 6), dtype=torch.float16, device=dev)
+    for fn in (lambda: bk.stats_forward(half), lambda: bk.stats_backward(half, half[0, :, 0, 0].float(), half[0, :, 0, 0].float())):
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError("a float16 tensor reached a BN-statistics kernel")
+    print("  a float16 activation is refused by both wrappers (ValueError)")
 
 
 def _launch_counts():
@@ -458,8 +521,10 @@ def _launch_counts():
         "chamfer_forward": ck.forward_fused.launches,
         "chamfer_nn_forward": ck.nn_directional.launches,
         "chamfer_backward": ck.side_grad.launches,
-        "bn_stats_forward": bk.stats_forward.launches,
-        "bn_stats_backward": bk.stats_backward.launches,
+        "bn_stats_forward": bk.stats_forward.launches - bk.stats_forward.bf16_launches,
+        "bn_stats_backward": bk.stats_backward.launches - bk.stats_backward.bf16_launches,
+        "bn_stats_forward_bf16": bk.stats_forward.bf16_launches,
+        "bn_stats_backward_bf16": bk.stats_backward.bf16_launches,
         "fps": fk.fps.launches,
     }
 
@@ -539,8 +604,9 @@ def phase_train_step(torch, dev, rec, card):
         _require(not bad, f"step {i}: non-finite metrics {bad}")
         print(f"  step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(values.items())))
     # the one-direction search serves large clouds only: no path runs it
-    _record_launches(rec, "mscmrseg", counts, set(counts) - {"fps", "chamfer_nn_forward"})
+    _record_launches(rec, "mscmrseg", counts, set(counts) - {"fps", "chamfer_nn_forward"} - BF16_ROWS)
     _require(counts["fps"] == 0, "the MS-CMRSeg step regenerates no clouds")
+    _require(not any(counts[k] for k in BF16_ROWS), f"a float32 step launched a bfloat16 kernel: {counts}")
     _require((counts["chamfer_forward"], counts["chamfer_nn_forward"], counts["chamfer_backward"]) == (2 * STEPS, 0, STEPS),
              f"per step the Chamfer loss must launch 2 fused forwards, no one-direction search and 1 backward: {counts}")
     print(f"  launches in {STEPS} steps: {counts}")
@@ -787,7 +853,8 @@ def phase_mmwhs(torch, dev, rec, card):
     _require((counts["chamfer_forward"], counts["chamfer_nn_forward"], counts["chamfer_backward"])
              == (2 * MMWHS_STEPS, 0, MMWHS_STEPS),
              f"per step the Chamfer loss must launch 2 fused forwards, no one-direction search and 1 backward: {counts}")
-    _record_launches(rec, "mmwhs", counts, set(counts) - {"chamfer_nn_forward"})
+    _require(not any(counts[k] for k in BF16_ROWS), f"a float32 step launched a bfloat16 kernel: {counts}")
+    _record_launches(rec, "mmwhs", counts, set(counts) - {"chamfer_nn_forward"} - BF16_ROWS)
     print(f"  launches in {MMWHS_STEPS} preprocess + step calls: {counts}")
     # the first call pays cuDNN's algorithm choice and the allocator's growth
     print(f"  MM-WHS device preprocess (bs 16, 256^2, light augmentation of both streams + 32 clouds by the FPS "
@@ -1189,7 +1256,7 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms, keep):
     return _cli_training_run(torch, dev, rec, card, dict(
         path="mmwhs_training_run", main=train_mmwhs.main,
         argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-nf", "32", "-aug", "light", "-softmax", "-d2", "-d4",
-              "-vert_t_every", str(RUN_VERT_T_EVERY)], final_eval=["-skip_final_eval"], keep=keep,
+              "-vert_t_every", str(RUN_VERT_T_EVERY), "-dtype", "float32"], final_eval=["-skip_final_eval"], keep=keep,
         fabricate=lambda root: _fabricate_mmwhs(root, seed=5),
         want={
             "fps": 2 * (steps + cadence_steps),
@@ -1198,6 +1265,8 @@ def phase_training_run(torch, dev, rec, card, pre_step_ms, keep):
             "chamfer_backward": 2 * steps,
             "bn_stats_forward": 2 * steps * 32,
             "bn_stats_backward": 2 * steps * 32,
+            "bn_stats_forward_bf16": 0,
+            "bn_stats_backward_bf16": 0,
         },
         nets={"gen", "d2", "d4"}, files=("unet_model_checkpoint", "entropy_dis", "point_dis"),
         steps=steps, val_batches=val_batches, bit_equal=False, beside="phase (f)",
@@ -1520,7 +1589,7 @@ def phase_mscmrseg_run(torch, dev, rec, card, per_step, pre_step_ms, keep):
     want["chamfer_forward"] += 2 * val_batches  # one forward per validation batch, in each of the 2 epochs
     _cli_training_run(torch, dev, rec, card, dict(
         path="mscmrseg_training_run", main=train_mscmrseg.main,
-        argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-d1", "-d2", "-d4"],
+        argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-d1", "-d2", "-d4", "-dtype", "float32"],
         fabricate=lambda root: _fabricate_mscmrseg(root, seed=7), want=want,
         nets={"gen", "d1", "d2", "d4"}, files=("unet_model_checkpoint", "out_dis", "entropy_dis", "point_dis"),
         steps=steps, val_batches=val_batches, bit_equal=True, beside="phase (h)", final_eval=None, keep=keep,
@@ -1557,9 +1626,13 @@ def _scaled_err(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(np.asarray(a, np.float64) - b).max() / max(np.abs(b).max(), 1e-30))
 
 
-def phase_evaluation(torch, dev, rec, card, keep, final_eval):
+def phase_evaluation(torch, dev, rec, card, keep, final_eval, tmp):
     """(j) evaluation at full width on the card, through the evaluate CLIs,
-    the predictor and its export, with no kernel launched."""
+    the predictor and its export, with no kernel launched, in float32. The
+    test patients are fabricated under ``tmp``, which phase (k) reads again;
+    returns the label volumes on the card of the MS-CMRSeg patients (phase
+    (i)'s generator, and the untrained one) and of the CT volumes, and the
+    untrained generator's file."""
     from pointcloududa_torch.cli import evaluate_mmwhs, evaluate_mscmrseg
     from pointcloududa_torch.cli.common import restored_generator
     from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
@@ -1571,125 +1644,373 @@ def phase_evaluation(torch, dev, rec, card, keep, final_eval):
     best_ms = [os.path.join(keep, f) for f in os.listdir(keep) if ".d1lr" in f]
     best_mm = [os.path.join(keep, f) for f in os.listdir(keep) if ".softmax" in f]
     _require(len(best_ms) == len(best_mm) == 1, f"the best checkpoints of phases (g) and (i): {os.listdir(keep)}")
-    tmp = tempfile.mkdtemp(prefix="pcuda_smoke_eval_")
     _reset_launches()
-    try:
+    t0 = time.perf_counter()
+    n_slices = _fabricate_lge_test(os.path.join(tmp, "lge"), seed=9) + _fabricate_ct_test(os.path.join(tmp, "ct"), seed=5)
+    print(f"  fabricated {n_slices} test slices in {time.perf_counter() - t0:.1f} s")
+
+    # MS-CMRSeg: phase (i)'s best generator, the reference's evaluation flags, on the card
+    lge_ids = list(LGE_TEST)
+    argv = ["-model_dir", best_ms[0], "-from_name", "-data_dir", os.path.join(tmp, "lge"), "-klc", "-clahe",
+            "-pat_lo", str(lge_ids[0]), "-pat_hi", str(lge_ids[-1] + 1), "-dtype", "float32"]
+    plots, per_patient = os.path.join(tmp, "plots"), os.path.join(tmp, "lge.csv")
+    with _eval_clock() as card_run:
+        got, text = _quiet(evaluate_mscmrseg.main, argv + ["-toplot", plots, "-csv", per_patient])
+    _require("Ave Dice:" in text, "no Ave Dice line")
+    _check_scores(got, "MS-CMRSeg")
+    for pat_id, labels in zip(lge_ids, card_run["labels"]):
+        x, y, z = LGE_TEST[pat_id]
+        _require(labels.shape == (z, y, x) and set(np.unique(labels)) <= {0, 200, 500, 600},
+                 f"patient {pat_id}: labels {labels.shape} {np.unique(labels)}")
+    n_plots = len(os.listdir(plots))
+    with open(per_patient) as f:
+        n_rows = len(f.read().strip().splitlines()) - 1
+    _require(n_plots == sum(LGE_TEST[p][2] for p in lge_ids) and n_rows == 3 * len(lge_ids),
+             f"{n_plots} triptychs, {n_rows} CSV rows")
+    print(_per_patient(card_run, lge_ids, card, "MS-CMRSeg (-klc -clahe)"))
+    print(f"  MS-CMRSeg metrics: {json.dumps(got)}; {n_plots} triptychs, {n_rows} CSV rows")
+
+    # the same weights in the reference's callback layout, as torch 1.4 wrote it
+    net = checkpoint.restore_pytree(best_ms[0])["state"]["net"]
+    released = os.path.join(tmp, "released_generator.pt")
+    torch.save({"epoch": 2, "model_state_dict": net["model"], "optimizer_state_dict": net["optimizer"]}, released,
+               _use_new_zipfile_serialization=False)
+    with _eval_clock() as again:
+        same, _ = _quiet(evaluate_mscmrseg.main, ["-model_dir", released, "-d4"] + argv[3:])
+    _require(same == got and all(np.array_equal(a, b) for a, b in zip(again["labels"], card_run["labels"])),
+             "the reference's callback layout gives other labels or metrics")
+    print("  the same weights in the reference's callback layout (legacy serialisation): equal labels and metrics")
+
+    # the same evaluation on the CPU; then, since a generator trained for 2 epochs on fabricated slices labels
+    # nearly every voxel background, an untrained one from a seed (a bare state_dict, the third layout), whose
+    # argmax has work to do everywhere, on the card and on the CPU (Dice only: the distances' time is the host's)
+    with _eval_clock() as cpu_run:
+        _quiet(evaluate_mscmrseg.main, argv, device="cpu")
+    untrained = os.path.join(tmp, "untrained_generator.pt")
+    torch.save(build_generator(mscmrseg_default(d4=True), torch.Generator().manual_seed(0)).state_dict(), untrained)
+    dice_only = ["-model_dir", untrained, "-d4", "-ifhd", "0", "-ifasd", "0"] + argv[3:]
+    with _eval_clock() as card_untrained:
+        _quiet(evaluate_mscmrseg.main, dice_only)
+    with _eval_clock() as cpu_untrained:
+        _quiet(evaluate_mscmrseg.main, dice_only, device="cpu")
+    for what, on_card, on_host in (("trained", card_run, cpu_run), ("untrained", card_untrained, cpu_untrained)):
+        shares = []
+        for i, pat_id in enumerate(lge_ids):
+            a, b = on_card["labels"][i], on_host["labels"][i]
+            shares.append(float((a != b).mean()))
+            _require(shares[-1] <= LABEL_SHARE, f"{what}, patient {pat_id}: card and CPU labels differ in {shares[-1]:.4%} of the voxels")
+            _require(shares[-1] > 0.0 or on_card["scores"][i] == on_host["scores"][i],
+                     f"{what}, patient {pat_id}: equal labels, other metrics")
+        counts = [dict(zip(*(v.tolist() for v in np.unique(labels, return_counts=True)))) for labels in on_card["labels"]]
+        print(f"  card against CPU, {what} generator: label voxels that differ per patient "
+              f"{', '.join(f'{s:.4%}' for s in shares)} (allowed {LABEL_SHARE:.2%}; metrics equal wherever the labels "
+              f"are); voxels of each label per patient on the card {counts}; the CPU's forward "
+              f"{sum(on_host['forward']):.2f} s against the card's {sum(on_card['forward']):.2f} s")
+
+    # MM-WHS: phase (g)'s best generator on its four CT volumes, the architecture from the file's name
+    csv_path = os.path.join(tmp, "mmwhs.csv")
+    with _eval_clock() as ct_run:
+        ct, text = _quiet(evaluate_mmwhs.main, ["-weight_dir", best_mm[0], "-from_name", "-save", "-csv", csv_path,
+                                                 "-model_name", "smoke", "-data_dir", os.path.join(tmp, "ct"),
+                                                 "-dtype", "float32"])
+    _require("d4lr" in text and "Ave Dice:" in text, "no tag listing or no Ave Dice line")
+    _check_scores(ct, "MM-WHS")
+    _require(ct == final_eval, "the evaluate CLI and phase (g)'s final evaluation give other metrics")
+    with open(csv_path) as f:
+        _require(len(f.read().strip().splitlines()) == 1 + len(CT_TEST), "MM-WHS CSV rows")
+    print(_per_patient(ct_run, CT_TEST, card, "MM-WHS"))
+    print(f"  MM-WHS metrics, equal to phase (g)'s final evaluation: {json.dumps(ct)}")
+
+    # the predictor at both widths, and its export
+    for cfg, best in ((mscmrseg_default(d1=True, d2=True, d4=True), best_ms[0]),
+                      (mmwhs_default(softmax=True, d2=True, d4=True), best_mm[0])):
+        size = cfg.crop_size
+        gen = restored_generator(cfg, best, dev)
+        predictor = Predictor(cfg, gen, batch_size=8)  # no device given: the card
+        x = np.random.default_rng(size).uniform(size=(11, size, size, 3)).astype(np.float32)
+        logits, points = predictor(x)
+        _require(logits.shape == (11, size, size, cfg.n_class) and points.shape == (11, 300, 3)
+                 and bool(np.isfinite(logits).all() and np.isfinite(points).all()), "predictor outputs")
+        tail, tail_points = predictor(x[8:])  # 3 images padded to 8
+        pad_err = max(_scaled_err(tail, logits[8:]), _scaled_err(tail_points, points[8:]))
+        _require(pad_err <= LOGIT_SCALED_TOL, f"the tail padding changed the outputs: {pad_err:.3g}")
+        cpu_logits, cpu_points = Predictor(cfg, gen, batch_size=2, device="cpu")(x[:2])
+        cpu_err = max(_scaled_err(logits[:2], cpu_logits), _scaled_err(points[:2], cpu_points))
+        _require(cpu_err <= LOGIT_SCALED_TOL, f"card against CPU logits: {cpu_err:.3g}")
+        times = [event_ms(lambda: predictor(x[:8]))[1] for _ in range(6)][1:]
         t0 = time.perf_counter()
-        n_slices = _fabricate_lge_test(os.path.join(tmp, "lge"), seed=9) + _fabricate_ct_test(os.path.join(tmp, "ct"), seed=5)
-        print(f"  fabricated {n_slices} test slices in {time.perf_counter() - t0:.1f} s")
-
-        # MS-CMRSeg: phase (i)'s best generator, the reference's evaluation flags, on the card
-        lge_ids = list(LGE_TEST)
-        argv = ["-model_dir", best_ms[0], "-from_name", "-data_dir", os.path.join(tmp, "lge"), "-klc", "-clahe",
-                "-pat_lo", str(lge_ids[0]), "-pat_hi", str(lge_ids[-1] + 1)]
-        plots, per_patient = os.path.join(tmp, "plots"), os.path.join(tmp, "lge.csv")
-        with _eval_clock() as card_run:
-            got, text = _quiet(evaluate_mscmrseg.main, argv + ["-toplot", plots, "-csv", per_patient])
-        _require("Ave Dice:" in text, "no Ave Dice line")
-        _check_scores(got, "MS-CMRSeg")
-        for pat_id, labels in zip(lge_ids, card_run["labels"]):
-            x, y, z = LGE_TEST[pat_id]
-            _require(labels.shape == (z, y, x) and set(np.unique(labels)) <= {0, 200, 500, 600},
-                     f"patient {pat_id}: labels {labels.shape} {np.unique(labels)}")
-        n_plots = len(os.listdir(plots))
-        with open(per_patient) as f:
-            n_rows = len(f.read().strip().splitlines()) - 1
-        _require(n_plots == sum(LGE_TEST[p][2] for p in lge_ids) and n_rows == 3 * len(lge_ids),
-                 f"{n_plots} triptychs, {n_rows} CSV rows")
-        print(_per_patient(card_run, lge_ids, card, "MS-CMRSeg (-klc -clahe)"))
-        print(f"  MS-CMRSeg metrics: {json.dumps(got)}; {n_plots} triptychs, {n_rows} CSV rows")
-
-        # the same weights in the reference's callback layout, as torch 1.4 wrote it
-        net = checkpoint.restore_pytree(best_ms[0])["state"]["net"]
-        released = os.path.join(tmp, "released_generator.pt")
-        torch.save({"epoch": 2, "model_state_dict": net["model"], "optimizer_state_dict": net["optimizer"]}, released,
-                   _use_new_zipfile_serialization=False)
-        with _eval_clock() as again:
-            same, _ = _quiet(evaluate_mscmrseg.main, ["-model_dir", released, "-d4"] + argv[3:])
-        _require(same == got and all(np.array_equal(a, b) for a, b in zip(again["labels"], card_run["labels"])),
-                 "the reference's callback layout gives other labels or metrics")
-        print("  the same weights in the reference's callback layout (legacy serialisation): equal labels and metrics")
-
-        # the same evaluation on the CPU; then, since a generator trained for 2 epochs on fabricated slices labels
-        # nearly every voxel background, an untrained one from a seed (a bare state_dict, the third layout), whose
-        # argmax has work to do everywhere, on the card and on the CPU (Dice only: the distances' time is the host's)
-        with _eval_clock() as cpu_run:
-            _quiet(evaluate_mscmrseg.main, argv, device="cpu")
-        untrained = os.path.join(tmp, "untrained_generator.pt")
-        torch.save(build_generator(mscmrseg_default(d4=True), torch.Generator().manual_seed(0)).state_dict(), untrained)
-        dice_only = ["-model_dir", untrained, "-d4", "-ifhd", "0", "-ifasd", "0"] + argv[3:]
-        with _eval_clock() as card_untrained:
-            _quiet(evaluate_mscmrseg.main, dice_only)
-        with _eval_clock() as cpu_untrained:
-            _quiet(evaluate_mscmrseg.main, dice_only, device="cpu")
-        for what, on_card, on_host in (("trained", card_run, cpu_run), ("untrained", card_untrained, cpu_untrained)):
-            shares = []
-            for i, pat_id in enumerate(lge_ids):
-                a, b = on_card["labels"][i], on_host["labels"][i]
-                shares.append(float((a != b).mean()))
-                _require(shares[-1] <= LABEL_SHARE, f"{what}, patient {pat_id}: card and CPU labels differ in {shares[-1]:.4%} of the voxels")
-                _require(shares[-1] > 0.0 or on_card["scores"][i] == on_host["scores"][i],
-                         f"{what}, patient {pat_id}: equal labels, other metrics")
-            counts = [dict(zip(*(v.tolist() for v in np.unique(labels, return_counts=True)))) for labels in on_card["labels"]]
-            print(f"  card against CPU, {what} generator: label voxels that differ per patient "
-                  f"{', '.join(f'{s:.4%}' for s in shares)} (allowed {LABEL_SHARE:.2%}; metrics equal wherever the labels "
-                  f"are); voxels of each label per patient on the card {counts}; the CPU's forward "
-                  f"{sum(on_host['forward']):.2f} s against the card's {sum(on_card['forward']):.2f} s")
-
-        # MM-WHS: phase (g)'s best generator on its four CT volumes, the architecture from the file's name
-        csv_path = os.path.join(tmp, "mmwhs.csv")
-        with _eval_clock() as ct_run:
-            ct, text = _quiet(evaluate_mmwhs.main, ["-weight_dir", best_mm[0], "-from_name", "-save", "-csv", csv_path,
-                                                     "-model_name", "smoke", "-data_dir", os.path.join(tmp, "ct")])
-        _require("d4lr" in text and "Ave Dice:" in text, "no tag listing or no Ave Dice line")
-        _check_scores(ct, "MM-WHS")
-        _require(ct == final_eval, "the evaluate CLI and phase (g)'s final evaluation give other metrics")
-        with open(csv_path) as f:
-            _require(len(f.read().strip().splitlines()) == 1 + len(CT_TEST), "MM-WHS CSV rows")
-        print(_per_patient(ct_run, CT_TEST, card, "MM-WHS"))
-        print(f"  MM-WHS metrics, equal to phase (g)'s final evaluation: {json.dumps(ct)}")
-
-        # the predictor at both widths, and its export
-        for cfg, best in ((mscmrseg_default(d1=True, d2=True, d4=True), best_ms[0]),
-                          (mmwhs_default(softmax=True, d2=True, d4=True), best_mm[0])):
-            size = cfg.crop_size
-            gen = restored_generator(cfg, best, dev)
-            predictor = Predictor(cfg, gen, batch_size=8)  # no device given: the card
-            x = np.random.default_rng(size).uniform(size=(11, size, size, 3)).astype(np.float32)
-            logits, points = predictor(x)
-            _require(logits.shape == (11, size, size, cfg.n_class) and points.shape == (11, 300, 3)
-                     and bool(np.isfinite(logits).all() and np.isfinite(points).all()), "predictor outputs")
-            tail, tail_points = predictor(x[8:])  # 3 images padded to 8
-            pad_err = max(_scaled_err(tail, logits[8:]), _scaled_err(tail_points, points[8:]))
-            _require(pad_err <= LOGIT_SCALED_TOL, f"the tail padding changed the outputs: {pad_err:.3g}")
-            cpu_logits, cpu_points = Predictor(cfg, gen, batch_size=2, device="cpu")(x[:2])
-            cpu_err = max(_scaled_err(logits[:2], cpu_logits), _scaled_err(points[:2], cpu_points))
-            _require(cpu_err <= LOGIT_SCALED_TOL, f"card against CPU logits: {cpu_err:.3g}")
-            times = [event_ms(lambda: predictor(x[:8]))[1] for _ in range(6)][1:]
-            t0 = time.perf_counter()
-            blob = export_predictor(cfg, gen, batch_size=8)
-            export_s = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            run = load_exported(blob)
-            load_s = time.perf_counter() - t0
-            x_dev = torch.from_numpy(x[:8]).to(dev)
-            out_logits, out_points = run(x_dev)
-            exp_err = max(_scaled_err(out_logits.cpu().numpy(), logits[:8]), _scaled_err(out_points.cpu().numpy(), points[:8]))
-            _require(exp_err <= LOGIT_SCALED_TOL, f"the exported program against the predictor: {exp_err:.3g}")
-            fwd = [event_ms(lambda: run(x_dev))[1] for _ in range(6)][1:]
-            print(f"  Predictor nf {cfg.filters}, bs 8, {size}^2, {cfg.n_class} classes + points: {statistics.median(times):.2f} ms a batch "
-                  f"(numpy in and out, between CUDA events; {8e3 / statistics.median(times):.1f} images/s), the exported "
-                  f"program on a batch on the card {statistics.median(fwd):.2f} ms; tail padding {pad_err:.3g}, card "
-                  f"against CPU {cpu_err:.3g}, export against predictor {exp_err:.3g} (max |diff| / max |value|, allowed "
-                  f"{LOGIT_SCALED_TOL}); artifact {len(blob)} bytes, exported in {export_s:.2f} s, loaded in {load_s:.2f} s, "
-                  f"on {card}")
-            del gen, predictor, run
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        blob = export_predictor(cfg, gen, batch_size=8)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = load_exported(blob)
+        load_s = time.perf_counter() - t0
+        x_dev = torch.from_numpy(x[:8]).to(dev)
+        out_logits, out_points = run(x_dev)
+        exp_err = max(_scaled_err(out_logits.cpu().numpy(), logits[:8]), _scaled_err(out_points.cpu().numpy(), points[:8]))
+        _require(exp_err <= LOGIT_SCALED_TOL, f"the exported program against the predictor: {exp_err:.3g}")
+        fwd = [event_ms(lambda: run(x_dev))[1] for _ in range(6)][1:]
+        print(f"  Predictor nf {cfg.filters}, bs 8, {size}^2, {cfg.n_class} classes + points: {statistics.median(times):.2f} ms a batch "
+              f"(numpy in and out, between CUDA events; {8e3 / statistics.median(times):.1f} images/s), the exported "
+              f"program on a batch on the card {statistics.median(fwd):.2f} ms; tail padding {pad_err:.3g}, card "
+              f"against CPU {cpu_err:.3g}, export against predictor {exp_err:.3g} (max |diff| / max |value|, allowed "
+              f"{LOGIT_SCALED_TOL}); artifact {len(blob)} bytes, exported in {export_s:.2f} s, loaded in {load_s:.2f} s, "
+              f"on {card}")
+        del gen, predictor, run
     counts = _launch_counts()
     _require(not any(counts.values()), f"kernels launched while evaluating: {counts} (eval mode normalises with running statistics)")
     _record_launches(rec, "evaluation", counts, set())
     print(f"  launches on the evaluation path: {counts}")
+    return dict(lge=card_run["labels"], lge_untrained=card_untrained["labels"], ct=ct_run["labels"], untrained=untrained)
+
+# phase (k): compute_dtype="bfloat16" at full width. Steps per dtype and path
+# (the first pays cuDNN's choice and the allocator's growth; the others are
+# timed). One-step kernels-vs-plain agreement of the bf16 step metrics: bf16
+# rounds where f32 differs by a last bit (the kernels' and PyTorch's sums), and
+# a flipped rounding spreads through the layers, so the CPU tests'
+# tolerance against JAX's bf16 step holds here: 5x the f32 one, 25x for
+# d4_loss, whose fast-variance norms amplify it (tests/test_torch_port_bf16.py).
+# bf16 against f32 labels of the same weights: the share of a patient's label
+# voxels that may differ, where bf16 noise moves a near-tie.
+BF16_STEPS = 5
+BF16_STEP_SCALE, BF16_D4_SCALE = 5.0, 25.0
+BF16_LABEL_SHARE = 0.05
+# a profiled step's kernels by kind, on their names (the first kind that matches)
+KERNEL_KINDS = (
+    ("layout transform", ("nchwToNhwc", "nhwcToNchw")),
+    ("port kernels", ("stats_partial_kernel", "stats_final_kernel", "stats_backward_kernel", "fused_forward_kernel",
+                      "side_grad_kernel", "fps_kernel")),
+    ("convolution", ("implicit_gemm", "fprop", "dgrad", "wgrad", "conv", "cudnn")),
+    ("matmul", ("gemm",)),
+    ("convolution", ("xmma", "cutlass")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _bf16_tol_ok(key: str, got: float, want: float) -> bool:
+    scale = BF16_D4_SCALE if key == "d4_loss" else BF16_STEP_SCALE
+    if key.startswith("dis"):  # accuracies over 16 samples or a few hundred patches: a flipped decision or two
+        return abs(got - want) <= 2.0 / 16
+    return abs(got - want) <= scale * (STEP_ATOL + STEP_RTOL * abs(want))
+
+
+def _step_profile(torch, fn) -> dict | None:
+    """Device time of one call of ``fn`` by kernel kind (``KERNEL_KINDS``),
+    from a ``torch.profiler`` trace: per kind ms and kernel count, the sum,
+    the traced window on the host clock (it ends in a synchronize) and the
+    device's idle share of it. ``None`` where the trace holds no kernel."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("profiled_step"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    window = [e for e in events if e.name == "profiled_step" and e.device_type.name == "CPU"]
+    kernels = [e for e in events if e.device_type.name == "CUDA" and e.name != "profiled_step"]
+    if not window or not kernels:
+        return None
+    kinds: dict = {}
+    for e in kernels:
+        kind = next((k for k, keys in KERNEL_KINDS if any(key in e.name for key in keys)), "other")
+        n, t = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    busy = sum(t for _, t in kinds.values())
+    host = window[0].time_range.elapsed_us() / 1e3
+    return dict(kinds=dict(sorted(kinds.items(), key=lambda kv: -kv[1][1])), kernel_ms=busy, window_ms=host,
+                idle=1.0 - busy / host, kernels=len(kernels))
+
+
+def _profile_text(prof) -> str:
+    if prof is None:
+        return "the profiler saw no kernel (not measured)"
+    kinds = "; ".join(f"{k} {t:.2f} ms ({t / prof['kernel_ms']:.1%}, {n} kernels)" for k, (n, t) in prof["kinds"].items())
+    return (f"{prof['kernel_ms']:.2f} ms of kernels ({prof['kernels']}) in a {prof['window_ms']:.2f} ms window, the device "
+            f"idle {prof['idle']:.1%} of it: {kinds}")
+
+
+def _share(a, b) -> float:
+    _require(a.shape == b.shape, f"label volumes {a.shape} and {b.shape}")
+    return float((a != b).mean())
+
+
+def phase_bf16(torch, dev, rec, card, heavy_pre_ms, keep, tmp, f32_labels):
+    """(k) compute_dtype="bfloat16" at full width, every kernel on: both steps
+    beside their float32 twins, one step kernels against plain, the eval
+    step, the reference's MS-CMRSeg command at its default (bf16, heavy
+    augmentation) with a resumed epoch, and both evaluate CLIs with
+    ``-dtype bfloat16`` on phase (j)'s patients."""
+    import dataclasses
+
+    from pointcloududa_torch.cli import evaluate_mmwhs, evaluate_mscmrseg, train_mscmrseg
+    from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
+    from pointcloududa_torch.data.synthetic import synthetic_batch, synthetic_eval_batch, synthetic_raw_batch
+    from pointcloududa_torch.models.unet import TwinBatchNorm
+    from pointcloududa_torch.train.loop import make_device_preprocess
+    from pointcloududa_torch.train.state import create_train_state
+    from pointcloududa_torch.train.step import make_eval_step, make_train_step
+    from pointcloududa_torch.utils.timing import event_ms
+
+    base = {
+        "mscmrseg": mscmrseg_default(d1=True, d2=True, d4=True, bs=16, chamfer_impl="pallas", bn_stats_impl="pallas"),
+        "mmwhs": mmwhs_default(softmax=True, d2=True, d4=True, aug="light", bs=16, chamfer_impl="pallas",
+                               bn_stats_impl="pallas"),
+    }
+    data = {
+        "mscmrseg": [_to_device(torch, synthetic_batch(base["mscmrseg"], 16, seed=s), dev) for s in range(BF16_STEPS)],
+        "mmwhs": [_to_device(torch, synthetic_raw_batch(base["mmwhs"], 16, seed=s), dev) for s in range(BF16_STEPS)],
+    }
+    per_step, timing = {}, {}
+    for workload, cfg0 in base.items():
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(cfg0, compute_dtype=dtype)
+            state = create_train_state(cfg, seed=0)
+            step = make_train_step(cfg, state.models, state.optimizers)
+            preprocess = make_device_preprocess(cfg, train=True, device_augment=True) if workload == "mmwhs" else None
+            gen = torch.Generator(device=dev).manual_seed(7)
+            bn_in = set()
+            hooks = [m.register_forward_pre_hook(lambda _m, a: bn_in.add((tuple(a[0].shape), a[0].dtype)))
+                     for m in state.models[0].modules() if isinstance(m, TwinBatchNorm)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _reset_launches()
+            pre_ms, step_ms, history = [], [], []
+            for item in data[workload]:
+                batch = item
+                if preprocess is not None:
+                    batch, t = event_ms(lambda: preprocess(gen, item))
+                    pre_ms.append(t)
+                (state, metrics), t = event_ms(lambda: step(state, batch))
+                step_ms.append(t)
+                history.append(metrics)
+            counts = _launch_counts()
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+            for h in hooks:
+                h.remove()
+            batch = data[workload][-1] if preprocess is None else preprocess(gen, data[workload][-1])
+            prof = _step_profile(torch, lambda: step(state, batch))
+            want_in = {(shape, getattr(torch, dtype)) for shape in BN_SHAPES[workload]}
+            _require(bn_in == want_in, f"{workload} {dtype}: BatchNorm inputs {sorted(map(str, bn_in))}")
+            for i, m in enumerate(history):
+                bad = [k for k, v in m.items() if not np.isfinite(float(v))]
+                _require(not bad, f"{workload} {dtype} step {i}: non-finite metrics {bad}")
+            if dtype == "bfloat16":
+                print(f"  {workload} bf16 step {BF16_STEPS - 1}: "
+                      + ", ".join(f"{k} {float(v):.5f}" for k, v in sorted(history[-1].items())))
+                n = BF16_STEPS
+                _require(counts["bn_stats_forward"] == counts["bn_stats_backward"] == 0
+                         and counts["bn_stats_forward_bf16"] == counts["bn_stats_backward_bf16"] == 32 * n
+                         and (counts["chamfer_forward"], counts["chamfer_backward"]) == (2 * n, n)
+                         and counts["fps"] == (2 * n if workload == "mmwhs" else 0),
+                         f"launches of {n} bf16 {workload} steps: {counts}")
+                _record_launches(rec, f"{workload}_bf16", counts, {k for k, v in counts.items() if v})
+                print(f"  launches in {n} bf16 {workload} {'preprocess + ' if preprocess else ''}step calls: {counts}")
+                per_step[workload] = {k: v // n for k, v in counts.items()}
+            timing[(workload, dtype)] = dict(step=statistics.median(step_ms[1:]), all=step_ms, peak=peak_gib,
+                                            pre=statistics.median(pre_ms[1:]) if pre_ms else 0.0)
+            print(f"  {workload} {dtype} step, profiled once more: {_profile_text(prof)}")
+            del state, step, preprocess, history, batch
+            torch.cuda.empty_cache()
+        f, b = timing[(workload, "float32")], timing[(workload, "bfloat16")]
+        pre = f" (device preprocess {f['pre']:.2f} and {b['pre']:.2f} ms)" if workload == "mmwhs" else ""
+        print(f"  {workload} train step, bs 16, {base[workload].crop_size}^2, all kernels: bfloat16 median {b['step']:.2f} ms "
+              f"against float32 {f['step']:.2f} ms over steps 1-{BF16_STEPS - 1} in this call (all: bf16 "
+              f"{', '.join(f'{t:.2f}' for t in b['all'])}; f32 {', '.join(f'{t:.2f}' for t in f['all'])}){pre}; peak memory "
+              f"{b['peak']:.2f} GiB against {f['peak']:.2f} GiB, on {card}")
+
+    # one step from identical weights: every kernel against every plain implementation, in bf16
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    for workload, cfg0 in base.items():
+        results = {}
+        for name, impls, fps_impl in (("kernels", {}, "auto"), ("plain", dict(chamfer_impl="jnp", bn_stats_impl="xla"), "plain")):
+            cfg = dataclasses.replace(cfg0, compute_dtype="bfloat16", **impls)
+            st = create_train_state(cfg, seed=0)
+            batch = data[workload][1]
+            if workload == "mmwhs":
+                batch = make_device_preprocess(cfg, True, True, fps_impl=fps_impl)(torch.Generator(device=dev).manual_seed(11), batch)
+            results[name] = {k: float(v) for k, v in make_train_step(cfg, st.models, st.optimizers)(st, batch)[1].items()}
+            del st
+        worst = {}
+        for key, want in results["plain"].items():
+            got = results["kernels"][key]
+            _require(_bf16_tol_ok(key, got, want), f"bf16 {workload} step metric {key}: kernels {got} vs plain {want}")
+            if not key.startswith("dis"):
+                worst[key] = abs(got - want) / (STEP_ATOL + STEP_RTOL * abs(want))
+        top = max(worst, key=worst.get)
+        print(f"  one bf16 {workload} step, kernels vs plain from identical weights: {len(results['plain'])} metrics agree "
+              f"(largest: {top} at {worst[top]:.2f}x the f32 step tolerance; allowed {BF16_STEP_SCALE}x, d4_loss "
+              f"{BF16_D4_SCALE}x, accuracies 2 of 16 decisions; cuDNN deterministic)")
+    torch.backends.cudnn.deterministic = False
+
+    # the eval step
+    cfg = dataclasses.replace(base["mscmrseg"], compute_dtype="bfloat16")
+    state = create_train_state(cfg, seed=0)
+    out = make_eval_step(cfg, state.models[0])(_to_device(torch, synthetic_eval_batch(cfg, cfg.bs), dev))
+    logits = out["logits"]
+    _require(tuple(logits.shape) == (16, 224, 224, 4) and logits.dtype == torch.float32 and bool(torch.isfinite(logits).all()),
+             f"bf16 eval logits {tuple(logits.shape)} {logits.dtype}")
+    vals = {k: float(out[k]) for k in ("loss", "dice", "vert_loss")}
+    _require(all(np.isfinite(v) for v in vals.values()), f"bf16 eval metrics {vals}")
+    print("  bf16 eval step: float32 logits (16, 224, 224, 4), " + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
+    del state
+
+    # the reference's MS-CMRSeg command at the CLI's default dtype (bfloat16) and pipeline (heavy)
+    steps = -(-RUN_NS // RUN_BS)
+    val_batches = sum(-(-MS_SPLITS[s][2] // RUN_BS) for s in ("testA", "trainB_orig", "trainB"))
+    want = {name: n * 2 * steps for name, n in per_step["mscmrseg"].items()}
+    want["chamfer_forward"] += 2 * val_batches
+    keep_bf16 = os.path.join(tmp, "best_bf16")
+    os.makedirs(keep_bf16)
+    _cli_training_run(torch, dev, rec, card, dict(
+        path="mscmrseg_bf16_training_run", main=train_mscmrseg.main,
+        argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-d1", "-d2", "-d4"],
+        fabricate=lambda root: _fabricate_mscmrseg(root, seed=7), want=want,
+        nets={"gen", "d1", "d2", "d4"}, files=("unet_model_checkpoint", "out_dis", "entropy_dis", "point_dis"),
+        steps=steps, val_batches=val_batches, bit_equal=True, beside="phase (h)'s heavy and this phase's bf16",
+        final_eval=None, keep=keep_bf16,
+    ), (heavy_pre_ms, timing[("mscmrseg", "bfloat16")]["step"]))
+
+    # the evaluate CLIs in bf16 on phase (j)'s patients: f32-trained generators against their f32 labels, the
+    # untrained one, and the bf16-trained generator at both dtypes
+    best_ms = [os.path.join(keep, f) for f in os.listdir(keep) if ".d1lr" in f][0]
+    best_mm = [os.path.join(keep, f) for f in os.listdir(keep) if ".softmax" in f][0]
+    best_bf16 = os.path.join(keep_bf16, os.listdir(keep_bf16)[0])
+    lge_ids = list(LGE_TEST)
+    lge = ["-data_dir", os.path.join(tmp, "lge"), "-klc", "-clahe", "-pat_lo", str(lge_ids[0]), "-pat_hi", str(lge_ids[-1] + 1)]
+    dice_only = ["-d4", "-ifhd", "0", "-ifasd", "0"]
+    _reset_launches()
+    runs = (
+        ("MS-CMRSeg, phase (i)'s generator", evaluate_mscmrseg.main, ["-model_dir", best_ms, "-from_name"] + lge, f32_labels["lge"], lge_ids),
+        ("MS-CMRSeg, untrained generator (Dice only)", evaluate_mscmrseg.main,
+         ["-model_dir", f32_labels["untrained"]] + dice_only + lge, f32_labels["lge_untrained"], lge_ids),
+        ("MM-WHS, phase (g)'s generator", evaluate_mmwhs.main,
+         ["-weight_dir", best_mm, "-from_name", "-data_dir", os.path.join(tmp, "ct")], f32_labels["ct"], CT_TEST),
+    )
+    for what, main, argv, f32_lab, ids in runs:
+        with _eval_clock() as clock:
+            result, text = _quiet(main, argv + ["-dtype", "bfloat16"])
+        _require("Ave Dice:" in text and len(clock["labels"]) == len(f32_lab), f"{what}: no Ave Dice line or patients missing")
+        _check_scores(result, what)
+        shares = [_share(a, b) for a, b in zip(clock["labels"], f32_lab)]
+        _require(max(shares) <= BF16_LABEL_SHARE, f"{what}: bf16 and f32 labels differ in {shares} of the voxels")
+        print(_per_patient(clock, ids, card, f"{what}, -dtype bfloat16"))
+        print(f"  {what}: bf16 labels against the f32 ones of phase (j), per patient "
+              f"{', '.join(f'{v:.4%}' for v in shares)} of the voxels differ (allowed {BF16_LABEL_SHARE:.0%})")
+    labels = {}
+    for dtype in ("float32", "bfloat16"):
+        with _eval_clock() as clock:
+            result, _ = _quiet(evaluate_mscmrseg.main, ["-model_dir", best_bf16, "-from_name", "-dtype", dtype] + dice_only[1:] + lge)
+        _check_scores(result, f"the bf16-trained generator evaluated in {dtype}")
+        labels[dtype] = clock["labels"]
+    shares = [_share(a, b) for a, b in zip(labels["bfloat16"], labels["float32"])]
+    print(f"  phase (k)'s bf16-trained generator ({os.path.basename(best_bf16)}) evaluates in float32 and in bfloat16: "
+          f"labels differ per patient in {', '.join(f'{v:.4%}' for v in shares)} of the voxels")
+    counts = _launch_counts()
+    _require(not any(counts.values()), f"kernels launched while evaluating in bf16: {counts}")
+    _record_launches(rec, "evaluation_bf16", counts, set())
+    print(f"  launches on the bf16 evaluation path: {counts}")
 
 
 def main() -> int:
@@ -1745,7 +2066,8 @@ def main() -> int:
     t0 = time.perf_counter()
     pre_step_ms = phase_mmwhs(torch, dev, rec, smi)
     seconds["f"] = time.perf_counter() - t0
-    keep = tempfile.mkdtemp(prefix="pcuda_smoke_best_")  # the best generators of (g) and (i), evaluated in (j)
+    keep = tempfile.mkdtemp(prefix="pcuda_smoke_best_")  # the best generators of (g) and (i), evaluated in (j) and (k)
+    tests = tempfile.mkdtemp(prefix="pcuda_smoke_eval_")  # the test patients of (j), read again in (k)
     try:
         print("(g) the training run: fabricated MM-WHS dataset -> cli.train_mmwhs.main (train, validate, checkpoint, "
               "evaluate the best, resume)")
@@ -1762,10 +2084,16 @@ def main() -> int:
         seconds["i"] = time.perf_counter() - t0
         print("(j) evaluation: the evaluate CLIs on fabricated test patients, the predictor and its export")
         t0 = time.perf_counter()
-        phase_evaluation(torch, dev, rec, smi, keep, final_eval)
+        f32_labels = phase_evaluation(torch, dev, rec, smi, keep, final_eval, tests)
         seconds["j"] = time.perf_counter() - t0
+        print("(k) bfloat16: both steps beside float32, kernels vs plain, the eval step, cli.train_mscmrseg.main at its "
+              "default dtype with resume, both evaluate CLIs with -dtype bfloat16")
+        t0 = time.perf_counter()
+        phase_bf16(torch, dev, rec, smi, heavy_pre_step_ms[0], keep, tests, f32_labels)
+        seconds["k"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+        shutil.rmtree(tests, ignore_errors=True)
     print("host seconds by phase: " + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
 
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -1,8 +1,7 @@
 """What the CLIs share: the kernel selection, the warm restart
 (``-load_weight``) and the full resume (``-resume``), as
 ``pointcloududa_tpu/cli/train_mmwhs.py:209-236`` has them; the generator
-that the evaluations restore from a checkpoint file; the refusal of
-``-dtype bfloat16``."""
+that the evaluations restore from a checkpoint file."""
 
 from __future__ import annotations
 
@@ -24,17 +23,11 @@ def with_kernels(cfg: UDAConfig) -> UDAConfig:
     return dataclasses.replace(cfg, chamfer_impl="pallas", bn_stats_impl="pallas")
 
 
-def check_dtype(args) -> None:
-    """Refuse, before anything is built, the compute type this package does
-    not have yet."""
-    if args.dtype != "float32":
-        raise NotImplementedError(f"-dtype {args.dtype} is not ported: ROADMAP Queue 1 item 13; use -dtype float32")
-
-
 def restored_generator(cfg: UDAConfig, path: str, device):
-    """A fresh generator built from ``cfg`` on ``device``, its weights
-    restored from the checkpoint file ``path`` (the port's trainer layout,
-    the reference's callback layout, or a bare ``state_dict``)."""
+    """A fresh generator built from ``cfg`` on ``device``, in ``cfg``'s
+    compute dtype, its weights restored from the checkpoint file ``path``
+    (the port's trainer layout, the reference's callback layout, or a bare
+    ``state_dict``; float32 whatever dtype trained them)."""
     from pointcloududa_torch.train.state import build_generator
 
     gen = build_generator(cfg).to(device)

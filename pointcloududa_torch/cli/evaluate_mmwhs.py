@@ -7,10 +7,11 @@ checkpoint FILE: the trainer's (e.g.
 ``weights/best_unet_model_checkpoint_<apdx>.Scr<score>``), the reference's
 callback layout (its released ``.pt`` files) or a bare ``state_dict``.
 Architecture flags can be inferred from the checkpoint name (the reference
-parses the filename, ``evaluate_mmwhs.py:231-253``). What differs from the
-JAX package's CLI: ``-dtype bfloat16`` is not ported (ROADMAP Queue 1 item
-13) and is refused; ``-no_packed`` parses and changes nothing (this package
-has no packed layout). The forward runs on the current CUDA device.
+parses the filename, ``evaluate_mmwhs.py:231-253``). ``-dtype`` is the
+forward's compute type (``float32`` by default, as in the JAX package's CLI).
+What differs from the JAX package's CLI: ``-no_packed`` parses and changes
+nothing (this package has no packed layout). The forward runs on the current
+CUDA device.
 
 Usage:
   python -m pointcloududa_torch evaluate-mmwhs -weight_dir <best .Scr file> \
@@ -22,7 +23,7 @@ from __future__ import annotations
 import argparse
 
 from pointcloududa_torch import config as _config
-from pointcloududa_torch.cli.common import check_dtype, restored_generator
+from pointcloududa_torch.cli.common import restored_generator
 from pointcloududa_torch.utils.device import resolve_device
 
 
@@ -38,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-ifasd", type=int, default=1)
     p.add_argument("-nf", type=int, default=32)
     p.add_argument("-dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="compute type; this package computes in float32 only and refuses bfloat16")
+                   help="compute type of the forward; a checkpoint trained in either type loads")
     p.add_argument(
         "-no_packed",
         help="accepted for the JAX package's command lines and changes nothing: "
@@ -62,7 +63,6 @@ def main(argv=None, device=None):
     current CUDA device (raising without one); the CPU tests pass
     ``device="cpu"``."""
     args = build_parser().parse_args(argv)
-    check_dtype(args)
     device = resolve_device(device)
 
     from pointcloududa_torch.eval import volume
@@ -73,7 +73,7 @@ def main(argv=None, device=None):
     if args.from_name:
         tags = [t for t in ("d1lr", "d2lr", "d4lr", "softmax", "etpls", "Tetpls") if t in name]
         print("model:", ".".join(tags) if tags else "(plain unet)")
-    cfg = _config.mmwhs_default(filters=args.nf, d4=d4, extpn=extpn, data_dir=args.data_dir)
+    cfg = _config.mmwhs_default(filters=args.nf, d4=d4, extpn=extpn, compute_dtype=args.dtype, data_dir=args.data_dir)
     gen = restored_generator(cfg, args.weight_dir, device)
     print("model loaded from", args.weight_dir)
     return volume.evaluate_mmwhs(

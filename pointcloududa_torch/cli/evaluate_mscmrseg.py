@@ -7,10 +7,10 @@ trainer's (e.g. ``weights/best_unet_model_checkpoint_<apdx>.Scr<score>``),
 the reference's callback layout (its released ``.pt`` files) or a bare
 ``state_dict``. Model hyper-parameters come from flags (the reference infers
 them by grepping the checkpoint FILENAME, ``evaluate_mscmrseg.py:249-259`` —
-supported here via ``-from_name``). What differs from the JAX package's CLI:
-``-dtype bfloat16`` is not ported (ROADMAP Queue 1 item 13) and is refused;
-``-no_packed`` parses and changes nothing (this package has no packed
-layout). The forward runs on the current CUDA device.
+supported here via ``-from_name``). ``-dtype`` is the forward's compute
+type (``float32`` by default, as in the JAX package's CLI). What differs
+from the JAX package's CLI: ``-no_packed`` parses and changes nothing (this
+package has no packed layout). The forward runs on the current CUDA device.
 
 Usage:
   python -m pointcloududa_torch.cli.evaluate_mscmrseg -model_dir <file> \
@@ -22,7 +22,7 @@ from __future__ import annotations
 import argparse
 
 from pointcloududa_torch import config as _config
-from pointcloududa_torch.cli.common import check_dtype, restored_generator
+from pointcloududa_torch.cli.common import restored_generator
 from pointcloududa_torch.utils.device import resolve_device
 
 
@@ -43,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-toplot", help="save input/pred/GT triptychs to this dir", type=str, default="")
     p.add_argument("-nf", type=int, default=32)
     p.add_argument("-dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="compute type; this package computes in float32 only and refuses bfloat16")
+                   help="compute type of the forward; a checkpoint trained in either type loads")
     p.add_argument(
         "-no_packed",
         help="accepted for the JAX package's command lines and changes nothing: "
@@ -58,13 +58,12 @@ def main(argv=None, device=None):
     current CUDA device (raising without one); the CPU tests pass
     ``device="cpu"``."""
     args = build_parser().parse_args(argv)
-    check_dtype(args)
     device = resolve_device(device)
 
     from pointcloududa_torch.eval import volume
 
     d4 = args.d4 or (args.from_name and ("d4lr" in args.model_dir or "d4aux" in args.model_dir))
-    cfg = _config.mscmrseg_default(filters=args.nf, d4=d4, data_dir=args.data_dir)
+    cfg = _config.mscmrseg_default(filters=args.nf, d4=d4, compute_dtype=args.dtype, data_dir=args.data_dir)
     gen = restored_generator(cfg, args.model_dir, device)
     print("model loaded from", args.model_dir)
     return volume.evaluate_mscmrseg(

@@ -3,11 +3,10 @@ package's ``cli/train_mmwhs.py``; same flags).
 
 Flag set mirrors reference ``src/train_mmwhs.py:815-872`` (~45 flags incl.
 softmax-CE, per-loss adversarial weights, d4aux, etpls/Tetpls, ext* model
-growth, per-discriminator momentum), plus the JAX package's extras. What
-differs here, each said in the flag's help: ``-dtype`` defaults to
-``float32`` (the port computes in float32 only); ``-no_packed`` parses and
-changes nothing (the port has no packed layout); ``-ndev`` above 1 and
-``-dist`` are not ported. Training runs on the current CUDA device with the
+growth, per-discriminator momentum), plus the JAX package's extras
+(``-dtype`` defaults to ``bfloat16``, as there). What differs here, each said
+in the flag's help: ``-no_packed`` parses and changes nothing (the port has
+no packed layout); ``-ndev`` above 1 and ``-dist`` are not ported. Training runs on the current CUDA device with the
 hand-written kernels (Chamfer, BN statistics, farthest-point sampling); at
 the end, unless ``-skip_final_eval``, the best checkpoint is evaluated on the
 CT test volumes (``train_mmwhs.py:680-686``) on the same device.
@@ -76,8 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-w2", type=float, default=1.0)
     p.add_argument("-w4", type=float, default=1.0)
     # extras beyond the reference
-    p.add_argument("-dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="compute type; this package computes in float32 only and rejects bfloat16")
+    p.add_argument("-dtype", choices=["float32", "bfloat16"], default="bfloat16",
+                   help="compute type of activations and convolutions (weights, gradients and optimiser state stay float32)")
     p.add_argument("-ndev", type=int, default=0,
                    help="devices to train on (0 or 1: one device; more is not ported: ROADMAP Queue 1 item 12)")
     p.add_argument(

@@ -3,9 +3,9 @@ package's ``cli/train_mscmrseg.py``; same flags).
 
 Flag set mirrors reference ``src/train_mscmrseg.py:675-697`` (including the
 store_false semantics of ``-aug``/``-offdecay``), plus the JAX package's
-extras (``-dtype``, ``-ndev``, ``-workdir``, ``-logdir``, ``-host_aug``,
-``-workers``). What differs here, each said in the flag's help: ``-dtype``
-defaults to ``float32``; ``-no_packed`` parses and changes nothing;
+extras (``-dtype``, ``bfloat16`` by default as there, ``-ndev``,
+``-workdir``, ``-logdir``, ``-host_aug``, ``-workers``). What differs here,
+each said in the flag's help: ``-no_packed`` parses and changes nothing;
 ``-ndev`` above 1, ``-dist`` and ``-host_aug`` are not ported. Without
 ``-aug`` the run augments with the heavy pipeline on the device, as the
 reference does (``-aug2``: the medium one; ``-aug``: no augmentation).
@@ -51,8 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-wp", help="point-cloud loss weight", type=float, default=1.0)
     p.add_argument("-data_dir", type=str, default="./input_aug")
     # extras beyond the reference
-    p.add_argument("-dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="compute type; this package computes in float32 only and rejects bfloat16")
+    p.add_argument("-dtype", choices=["float32", "bfloat16"], default="bfloat16",
+                   help="compute type of activations and convolutions (weights, gradients and optimiser state stay float32)")
     p.add_argument("-ndev", type=int, default=0,
                    help="devices to train on (0 or 1: one device; more is not ported: ROADMAP Queue 1 item 12)")
     p.add_argument("-workdir", type=str, default="weights")

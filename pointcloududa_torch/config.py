@@ -96,7 +96,7 @@ class UDAConfig:
 
     # implementation knobs (no reference equivalent). The names and values
     # are the JAX package's; what each selects in this package:
-    compute_dtype: str = "float32"  # the port computes in float32 only
+    compute_dtype: str = "float32"  # or "bfloat16", the training CLIs' default
     num_devices: int = 0  # 0 = all visible devices
     # Chamfer loss: "pallas" = the hand-written CUDA kernels
     # (csrc/chamfer.cu); "auto" and "jnp" = the plain PyTorch loss

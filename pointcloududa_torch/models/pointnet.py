@@ -12,7 +12,10 @@ shared MLP runs channel-first as Conv1d. The norms have the generator's
 BatchNorm numerics (flax fast variance, torch running update) but never use
 the BN kernel (as in JAX, ``pointnet.py:60``); at batch size 1 they
 normalise per sample instead (:class:`Norm1d`). Every layer keeps the torch
-default init, as the reference's init loop skips PointNet.
+default init, as the reference's init loop skips PointNet. ``compute_dtype``
+as in ``models/unet.py``: the input transforms multiply in float32, as the
+JAX module's ``einsum(..., preferred_element_type=f32)`` does, and the logit
+comes out in float32 (the transforms in the compute dtype, as in JAX).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pointcloududa_torch.models.init import torch_linear_init
-from pointcloududa_torch.models.unet import Dropout, TwinBatchNorm
+from pointcloududa_torch.models.unet import Conv1d, Dropout, Linear, TwinBatchNorm, set_compute_dtype
 
 
 class Norm1d(TwinBatchNorm):
@@ -47,12 +50,12 @@ class STNkd(nn.Module):
     def __init__(self, k: int = 3):
         super().__init__()
         self.k = k
-        self.conv1 = nn.Conv1d(k, 64, 1)
-        self.conv2 = nn.Conv1d(64, 128, 1)
-        self.conv3 = nn.Conv1d(128, 1024, 1)
-        self.fc1 = nn.Linear(1024, 512)
-        self.fc2 = nn.Linear(512, 256)
-        self.fc3 = nn.Linear(256, k * k)
+        self.conv1 = Conv1d(k, 64, 1)
+        self.conv2 = Conv1d(64, 128, 1)
+        self.conv3 = Conv1d(128, 1024, 1)
+        self.fc1 = Linear(1024, 512)
+        self.fc2 = Linear(512, 256)
+        self.fc3 = Linear(256, k * k)
         for i, ch in enumerate((64, 128, 1024, 512, 256), start=1):
             self.add_module(f"bn{i}", Norm1d(ch))
 
@@ -68,8 +71,8 @@ class STNkd(nn.Module):
 
 
 def _transform(x: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
-    """(B, D, N) channel-first points times a (B, D, D) transform."""
-    return torch.bmm(x.transpose(1, 2), trans).transpose(1, 2)
+    """(B, D, N) channel-first points times a (B, D, D) transform, in f32."""
+    return torch.bmm(x.transpose(1, 2).to(torch.float32), trans.to(torch.float32)).transpose(1, 2)
 
 
 class PointNetFeat(nn.Module):
@@ -87,7 +90,7 @@ class PointNetFeat(nn.Module):
             if ext else (("conv1", 3, 64), ("conv2", 64, 128), ("conv3", 128, 1024))
         )
         for name, cin, cout in ladder:
-            self.add_module(name, nn.Conv1d(cin, cout, 1))
+            self.add_module(name, Conv1d(cin, cout, 1))
             self.add_module(name.replace("conv", "bn"), Norm1d(cout))
         if feature_transform:
             self.fstn = STNkd(64)
@@ -122,25 +125,26 @@ class PointNetCls(nn.Module):
     trans_feat)."""
 
     def __init__(self, feature_transform=False, ext=False, drop: float = 0.3,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.feat = PointNetFeat(feature_transform, ext)
-        self.fc1 = nn.Linear(1024, 512)
-        self.fc2 = nn.Linear(512, 256)
-        self.fc3 = nn.Linear(256, 1)
+        self.fc1 = Linear(1024, 512)
+        self.fc2 = Linear(512, 256)
+        self.fc3 = Linear(256, 1)
         self.bn1 = Norm1d(512)
         self.bn2 = Norm1d(256)
         self.dropout = Dropout(drop)
         for m in self.modules():
             if isinstance(m, (nn.Conv1d, nn.Linear)):
                 torch_linear_init(m, generator)
+        set_compute_dtype(self, compute_dtype)
 
     def forward(self, points: torch.Tensor, generator: torch.Generator | None = None):
         x, trans, trans_feat = self.feat(points.to(torch.float32).transpose(1, 2).contiguous())
         x = F.relu(self.bn1(self.fc1(x)))
         x = self.dropout(self.fc2(x), generator)  # before the norm (PointNetCls.py:209)
         x = F.relu(self.bn2(x))
-        return self.fc3(x), trans, trans_feat
+        return self.fc3(x).to(torch.float32), trans, trans_feat
 
 
 def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:

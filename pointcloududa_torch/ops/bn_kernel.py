@@ -7,11 +7,14 @@ the gradient ``dx = g_m / N + 2 x g_q / N``.
 :func:`batch_stats` forms the flax fast variance ``max(E[x^2] - E[x]^2, 0)``
 from it, the statistics ``_TwinBatchNorm`` normalises with.
 
-The kernels take float32 (the port's only compute dtype) and every channel
-count and row count: there is no counterpart of
-the TPU kernel's ``C % 128`` fallback. Each wrapper launches its kernel for a
-CUDA tensor, or raises, and counts the launch in its ``launches`` attribute;
-only a CPU tensor takes the plain PyTorch version beside it.
+The kernels take the port's two compute dtypes, float32 and bfloat16 (read
+in its own type and widened to float32 in registers, as the TPU kernel does;
+the statistics and every sum are float32, ``dx`` has x's type), and every
+channel count and row count: there is no counterpart of the TPU kernel's
+``C % 128`` fallback. Each wrapper launches its kernel for a CUDA tensor, or
+raises, and counts the launch in its ``launches`` attribute, a bfloat16
+launch also in ``bf16_launches``; only a CPU tensor takes the plain PyTorch
+version beside it.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from pointcloududa_torch.utils import native
 
 _ELEMS_PER_BLOCK = 4096  # elements one forward block reduces (16 per thread)
 _MAX_SPLITS = 1024
+# x's dtype -> suffix of the C entry points of its instantiation
+_ENTRY = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _layout(x: torch.Tensor):
@@ -36,8 +41,8 @@ def _layout(x: torch.Tensor):
 def _check(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the BN-statistics kernels run on CUDA tensors only, got {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"expected a contiguous float32 tensor, got {x.dtype}")
+    if x.dtype not in _ENTRY or not x.is_contiguous():
+        raise ValueError(f"expected a contiguous float32 or bfloat16 tensor, got {x.dtype}")
     outer, c, inner = _layout(x)
     if not (1 <= c <= 65535 and outer * inner >= 1 and x.numel() < 2**31):
         raise ValueError(f"unsupported BN-statistics shape {tuple(x.shape)}")
@@ -68,18 +73,22 @@ def stats_forward(x: torch.Tensor):
     part = torch.empty((2, c, splits), dtype=torch.float32, device=x.device)
     mean = torch.empty(c, dtype=torch.float32, device=x.device)
     meansq = torch.empty(c, dtype=torch.float32, device=x.device)
+    name = "pcuda_bn_stats_forward" + _ENTRY[x.dtype]
     with torch.cuda.device(x.device):
-        status = native.load().pcuda_bn_stats_forward(
+        status = getattr(native.load(), name)(
             x.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), mean.data_ptr(),
             meansq.data_ptr(), outer, c, inner, splits,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    native.check(status, "pcuda_bn_stats_forward")
+    native.check(status, name)
     stats_forward.launches += 1
+    if x.dtype == torch.bfloat16:
+        stats_forward.bf16_launches += 1
     return mean, meansq
 
 
 stats_forward.launches = 0
+stats_forward.bf16_launches = 0
 
 
 def stats_backward_plain(x: torch.Tensor, g_mean: torch.Tensor, g_meansq: torch.Tensor):
@@ -89,7 +98,7 @@ def stats_backward_plain(x: torch.Tensor, g_mean: torch.Tensor, g_meansq: torch.
 
 
 def stats_backward(x: torch.Tensor, g_mean: torch.Tensor, g_meansq: torch.Tensor):
-    """dx = g_m / N + 2 x g_q / N in f32."""
+    """dx = g_m / N + 2 x g_q / N in f32, returned in x's dtype."""
     if x.device.type == "cpu":
         return stats_backward_plain(x, g_mean, g_meansq)
     _check(x)
@@ -99,17 +108,21 @@ def stats_backward(x: torch.Tensor, g_mean: torch.Tensor, g_meansq: torch.Tensor
     if g_mean.shape != (c,) or g_meansq.shape != (c,):
         raise ValueError(f"expected ({c},) gradients")
     dx = torch.empty_like(x)
+    name = "pcuda_bn_stats_backward" + _ENTRY[x.dtype]
     with torch.cuda.device(x.device):
-        status = native.load().pcuda_bn_stats_backward(
+        status = getattr(native.load(), name)(
             x.data_ptr(), g_mean.data_ptr(), g_meansq.data_ptr(), dx.data_ptr(),
             outer, c, inner, torch.cuda.current_stream(x.device).cuda_stream,
         )
-    native.check(status, "pcuda_bn_stats_backward")
+    native.check(status, name)
     stats_backward.launches += 1
+    if x.dtype == torch.bfloat16:
+        stats_backward.bf16_launches += 1
     return dx
 
 
 stats_backward.launches = 0
+stats_backward.bf16_launches = 0
 
 
 class _BNStats(torch.autograd.Function):
@@ -143,5 +156,5 @@ def batch_stats(x: torch.Tensor, use_kernel: bool = True):
 
 
 def reset_launches() -> None:
-    stats_forward.launches = 0
-    stats_backward.launches = 0
+    for fn in (stats_forward, stats_backward):
+        fn.launches = fn.bf16_launches = 0

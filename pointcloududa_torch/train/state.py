@@ -10,7 +10,9 @@ Optimiser parity (torch's own optimisers are the reference's):
 
 The modules hold the weights and the optimisers hold their moments, so the
 state is a container of both, plus the step count and the generator that
-draws dropout masks.
+draws dropout masks. Under ``compute_dtype="bfloat16"`` the modules compute
+in bfloat16 (``models/unet.py`` says where they round); the weights, their
+gradients and the optimisers' moments stay float32.
 """
 
 from __future__ import annotations
@@ -33,6 +35,13 @@ class UDATrainState:
     generator: torch.Generator  # dropout masks, on the models' device
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: UDAConfig) -> torch.dtype:
+    return _DTYPES[cfg.compute_dtype]
+
+
 def check_config(cfg: UDAConfig) -> None:
     """Reject the settings the port does not implement."""
     if cfg.packed_level0 or cfg.packed_level1 or cfg.packed_compute:
@@ -40,8 +49,8 @@ def check_config(cfg: UDAConfig) -> None:
             "packed_level0/packed_level1/packed_compute are TPU lane-padding "
             "workarounds (docs/PACKED.md); the PyTorch port runs the standard layout only"
         )
-    if cfg.compute_dtype != "float32":
-        raise ValueError(f"the PyTorch port computes in float32 only (got compute_dtype={cfg.compute_dtype!r})")
+    if cfg.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16' (got {cfg.compute_dtype!r})")
     if not cfg.torch_bn_stats:
         raise ValueError("the PyTorch port keeps torch's unbiased running variance (torch_bn_stats=True)")
     if cfg.bn_stats_impl == "pallas" and cfg.num_devices > 1:
@@ -71,6 +80,7 @@ def build_generator(cfg: UDAConfig, generator: Optional[torch.Generator] = None)
         heinit=cfg.heinit,
         bn_kernel=cfg.bn_stats_impl == "pallas",
         generator=generator,
+        compute_dtype=compute_dtype(cfg),
     )
 
 
@@ -80,9 +90,10 @@ def build_models(cfg: UDAConfig, generator: Optional[torch.Generator] = None):
     are built in host memory and :func:`create_train_state` moves them to
     its device)."""
     gen = build_generator(cfg, generator)
-    d1 = UncertaintyDiscriminator(cfg.n_class, cfg.heinit, cfg.extd1, generator) if cfg.d1 else None
-    d2 = UncertaintyDiscriminator(cfg.n_class, cfg.heinit, cfg.extd2, generator) if cfg.d2 else None
-    d4 = PointNetCls(feature_transform=cfg.ft, ext=cfg.extd4, generator=generator) if cfg.d4 else None
+    dt = compute_dtype(cfg)
+    d1 = UncertaintyDiscriminator(cfg.n_class, cfg.heinit, cfg.extd1, generator, dt) if cfg.d1 else None
+    d2 = UncertaintyDiscriminator(cfg.n_class, cfg.heinit, cfg.extd2, generator, dt) if cfg.d2 else None
+    d4 = PointNetCls(feature_transform=cfg.ft, ext=cfg.extd4, generator=generator, compute_dtype=dt) if cfg.d4 else None
     return gen, d1, d2, d4
 
 

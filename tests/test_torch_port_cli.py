@@ -1,8 +1,9 @@
 """The port's training CLIs (``pointcloududa_torch/cli``) against the JAX
-package's: every flag parses to the same ``UDAConfig`` (but for the compute
-type and the packed layouts, which the port does not have), what is not
-ported is refused before any training, and ``main(argv, device="cpu")`` trains,
-resumes and warm-restarts on fabricated mini datasets.
+package's: every flag parses to the same ``UDAConfig`` (but for the packed
+layouts, which the port does not have; ``-dtype`` defaults to bfloat16 in
+both), what is not ported is refused before any training, and
+``main(argv, device="cpu")`` trains, resumes and warm-restarts on fabricated
+mini datasets, in float32 and in bfloat16.
 
 The CLI runs use the presets' late binding (``config.mmwhs_default`` is looked
 up when ``config_from_args`` runs) to train at 96^2 with ``fc_inch=1``; the
@@ -26,7 +27,7 @@ from test_torch_port_data import make_mmwhs_dataset, make_mscmrseg_dataset
 from test_torch_port_step import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_IN_THE_PORT = {"compute_dtype", "packed_level0", "packed_level1", "packed_compute"}
+NOT_IN_THE_PORT = {"packed_level0", "packed_level1", "packed_compute"}
 
 MSCMRSEG_ARGV = [
     [],
@@ -54,7 +55,7 @@ def _same_config(port_cfg, ref_cfg):
     a, b = dataclasses.asdict(port_cfg), dataclasses.asdict(ref_cfg)
     assert set(a) == set(b)
     assert {k: v for k, v in a.items() if k not in NOT_IN_THE_PORT} == {k: v for k, v in b.items() if k not in NOT_IN_THE_PORT}
-    assert port_cfg.compute_dtype == "float32" and not (port_cfg.packed_level0 or port_cfg.packed_level1 or port_cfg.packed_compute)
+    assert not (port_cfg.packed_level0 or port_cfg.packed_level1 or port_cfg.packed_compute)
     assert port_config.appendix(port_cfg) == ref_mmwhs.appendix(ref_cfg)
 
 
@@ -73,9 +74,11 @@ def test_mmwhs_flags_give_the_jax_packages_config(argv):
 
 
 def test_flag_defaults_differ_only_in_the_compute_type():
+    """They no longer differ at all: ``-dtype`` defaults to bfloat16 in both
+    packages."""
     for port, ref in ((train_mmwhs, ref_mmwhs), (train_mscmrseg, ref_mscmrseg)):
         a, b = vars(port.build_parser().parse_args([])), vars(ref.build_parser().parse_args([]))
-        assert {k for k in a if a[k] != b[k]} == {"dtype"} and a["dtype"] == "float32"
+        assert {k for k in a if a[k] != b[k]} == set() and a["dtype"] == "bfloat16"
     cfg = common.with_kernels(train_mmwhs.config_from_args(train_mmwhs.build_parser().parse_args([])))
     assert (cfg.chamfer_impl, cfg.bn_stats_impl) == ("pallas", "pallas")  # a command-line run goes through the kernels
 
@@ -121,13 +124,48 @@ def test_the_gate_lets_a_ported_run_through(no_training):
 
 
 @pytest.mark.parametrize("argv", [["-dtype", "bfloat16", "-skip_final_eval"]])
-def test_bfloat16_is_rejected_before_training(argv, tmp_path):
-    """``check_config`` refuses the compute type when the trainer builds its
-    state, before the first step (the data directory here is empty: the
-    datalists are asked for first, so give it one)."""
-    root = make_mmwhs_dataset(tmp_path / "d", size=32, n=2)
-    with pytest.raises(ValueError, match="float32 only"):
-        train_mmwhs.main(argv + ["-data_dir", root, "-workdir", str(tmp_path / "w"), "-logdir", str(tmp_path / "r")], device="cpu")
+def test_bfloat16_training_writes_float32_checkpoints_and_resumes_bit_equal(argv, tmp_path, monkeypatch):
+    """``-dtype bfloat16`` (the default, given here explicitly) trains on the
+    CPU (96^2, 8 filters, light augmentation, D2 + D4): its checkpoints hold
+    float32 weights and optimiser state; 2 epochs with a snapshot, then the
+    same command with ``-e 3`` resumed, give an epoch 3 whose every
+    checkpointed tensor equals that of an uninterrupted 3-epoch run bit for
+    bit."""
+    root = make_mmwhs_dataset(tmp_path / "d", size=96)
+    preset = port_config.mmwhs_default
+    monkeypatch.setattr(port_config, "mmwhs_default", lambda **kw: preset(**{**kw, "crop_size": 96, "fc_inch": 1}))
+    common_argv = argv + ["-bs", "4", "-ns", "4", "-nf", "8", "-aug", "light", "-softmax", "-d2", "-d4", "-data_dir", root,
+                          "-workers", "1"]
+
+    def run(tag, epochs):
+        out = str(tmp_path / tag)
+        train_mmwhs.main(common_argv + ["-e", str(epochs), "-workdir", f"{out}/w", "-logdir", f"{out}/r", "-resume",
+                                        f"{out}/snap"], device="cpu")
+        return f"{out}/w"
+
+    run("a", 2)
+    resumed, straight = run("a", 3), run("b", 3)
+    names = sorted(f for f in os.listdir(straight) if not f.startswith("best_"))
+    assert names == sorted(f for f in os.listdir(resumed) if not f.startswith("best_")) and len(names) == 3
+    for name in names:
+        a, b = ckpt.restore_pytree(os.path.join(resumed, name)), ckpt.restore_pytree(os.path.join(straight, name))
+        assert a["epoch"] == b["epoch"] == 3
+        tensors_a, tensors_b = list(_tensors(a["state"]["net"])), list(_tensors(b["state"]["net"]))
+        assert len(tensors_a) == len(tensors_b) > 0
+        assert all(t.dtype in (torch.float32, torch.int64) for t in tensors_a)
+        assert all(torch.equal(x, y) for x, y in zip(tensors_a, tensors_b)), name
+
+
+def _tensors(tree):
+    """The tensors of a nested checkpoint payload, in a fixed order."""
+    if torch.is_tensor(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree, key=str):
+            yield from _tensors(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
 
 
 @pytest.mark.parametrize("argv", [[], ["-aug2"]], ids=["heavy", "medium"])
@@ -142,7 +180,8 @@ def test_mscmrseg_without_aug_asks_for_a_pipeline_that_is_not_ported(argv, tmp_p
     preset = port_config.mscmrseg_default
     monkeypatch.setattr(port_config, "mscmrseg_default", lambda **kw: preset(**{**kw, "crop_size": 96, "fc_inch": 1, "filters": 8}))
     train_mscmrseg.main(argv + ["-d1", "-d2", "-d4", "-bs", "2", "-ns", "4", "-e", "1", "-data_dir", root, "-workdir",
-                                str(tmp_path / "w"), "-logdir", str(tmp_path / "r"), "-workers", "2"], device="cpu")
+                                str(tmp_path / "w"), "-logdir", str(tmp_path / "r"), "-workers", "2", "-dtype", "float32"],
+                        device="cpu")
     out = capsys.readouterr().out
     apdx = out.splitlines()[0]
     assert apdx.endswith(".aug2" if argv else ".d4lr2.5e-05") and "[1/1]" in out and "nan" not in out
@@ -162,7 +201,7 @@ def test_mmwhs_cli_trains_resumes_and_warm_restarts(tmp_path, capsys, monkeypatc
     snap = str(tmp_path / "snap")
     common_argv = ["-bs", "4", "-ns", "6", "-nf", "8", "-aug", "light", "-softmax", "-d2", "-d4", "-vert_t_every", "2",
                    "-skip_final_eval", "-data_dir", root, "-workdir", str(tmp_path / "w"), "-logdir", str(tmp_path / "r"),
-                   "-workers", "2"]
+                   "-workers", "2", "-dtype", "float32"]
     train_mmwhs.main(common_argv + ["-e", "2", "-resume", snap], device="cpu")
     out = capsys.readouterr().out
     apdx = out.splitlines()[0]
@@ -216,7 +255,7 @@ def test_mmwhs_cli_evaluates_its_best_checkpoint_after_training(tmp_path, capsys
 
     monkeypatch.setattr(volume, "evaluate_mmwhs", recording)
     train_mmwhs.main(["-bs", "2", "-ns", "4", "-e", "2", "-nf", "8", "-softmax", "-d2", "-d4", "-data_dir", root, "-workdir",
-                      str(tmp_path / "w"), "-logdir", str(tmp_path / "r"), "-workers", "1"], device="cpu")
+                      str(tmp_path / "w"), "-logdir", str(tmp_path / "r"), "-workers", "1", "-dtype", "float32"], device="cpu")
     out = capsys.readouterr().out
     assert "[2/2]" in out and "Evaluate the best model:" in out and "Ave Dice:" in out
     best = out.split("Evaluate the best model: ")[1].splitlines()[0]

@@ -6,7 +6,8 @@ This file imports no JAX, so it runs where only PyTorch is installed.
 Tolerances as in ``chip_smoke.py``: argmins equal, Chamfer minima and
 gradients atol 1e-6 (the backward also bit-equal on a repeat, whatever its
 lane count), BN statistics 1e-5 (+1e-5 relative, f32 sums in another
-order), BN gradients 1e-6 relative; farthest-point sampling exact.
+order; a bfloat16 input too), BN gradients 1e-6 relative (float32) and
+within 1 bfloat16 ulp (bfloat16); farthest-point sampling exact.
 """
 
 import numpy as np
@@ -141,12 +142,53 @@ def test_bn_stats_kernels_match_plain(dev, shape):
     torch.testing.assert_close(dx, bn_kernel.stats_backward_plain(x, gm, gq), rtol=1e-6, atol=1e-7)
 
 
+def _bf16_ulps(got, want):
+    """|got - want| in units of the last place of bfloat16 at ``want``."""
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0**-126))) - 7)
+    return (got.float() - want.float()).abs() / ulp
+
+
+@pytest.mark.parametrize("shape,offset", [((16, 32, 56, 56), 0), ((4, 24, 7, 9), 0), ((1000, 32), 0), ((8, 64, 28, 28), 1),
+                                          ((2, 16, 8, 8), 0)],
+                         ids=["vectors", "inner-63", "rows", "misaligned", "small"])
+def test_bn_stats_bf16_kernels_match_plain(dev, shape, offset):
+    """bfloat16 x, widened in registers: the statistics at the float32
+    tolerance, dx within 1 bfloat16 ulp of the plain version's (both compute
+    it in float32 and round once), both bit-equal on a repeat. ``inner``
+    divisible by 8 on an aligned tensor reads 16-byte vectors; 63, 1 and a
+    tensor that starts 2 bytes past an aligned address read one value at a
+    time."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = int(np.prod(shape))
+    x = (torch.randn(n + offset, generator=gen, device=dev) * 0.7 + 0.2).to(torch.bfloat16)[offset:].view(shape)
+    c = shape[1]
+    before = (bn_kernel.stats_forward.bf16_launches, bn_kernel.stats_backward.bf16_launches)
+    m, q = bn_kernel.stats_forward(x)
+    pm, pq = bn_kernel.stats_forward_plain(x)
+    assert m.dtype == q.dtype == torch.float32
+    torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5)
+    m2, q2 = bn_kernel.stats_forward(x)
+    assert torch.equal(m, m2) and torch.equal(q, q2)
+    gm = torch.randn(c, generator=gen, device=dev)
+    gq = torch.randn(c, generator=gen, device=dev)
+    dx = bn_kernel.stats_backward(x, gm, gq)
+    want = bn_kernel.stats_backward_plain(x, gm, gq)
+    assert dx.dtype == torch.bfloat16 and float(_bf16_ulps(dx, want).max()) <= 1.0
+    assert torch.equal(dx, bn_kernel.stats_backward(x, gm, gq))
+    assert (bn_kernel.stats_forward.bf16_launches - before[0], bn_kernel.stats_backward.bf16_launches - before[1]) == (2, 2)
+
+
 def test_bn_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x = torch.randn(4, 8, 6, 6, device=dev)
     with pytest.raises(ValueError):
         bn_kernel.stats_forward(x.transpose(2, 3))
     with pytest.raises(ValueError):
-        bn_kernel.stats_forward(x.to(torch.bfloat16))
+        bn_kernel.stats_forward(x.to(torch.float16))
+    with pytest.raises(ValueError):
+        bn_kernel.stats_backward(x.to(torch.float16), torch.zeros(8, device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(ValueError):
+        bn_kernel.stats_forward(x.double())
 
 
 def test_generator_with_kernel_bn_matches_plain_bn(dev):

@@ -1,9 +1,10 @@
 """The port's evaluate CLIs (``pointcloududa_torch/cli/evaluate_*.py``)
 against the JAX package's: the same flags give the same ``UDAConfig`` (but
-for the compute type and the packed layouts, which the port does not have)
-and the same keyword arguments to the evaluator, ``-from_name`` included; the
-checkpoint file is restored in any of the three layouts; ``-dtype bfloat16``
-is refused. The evaluators are stubbed, as ``tests/test_eval_cli.py`` does,
+for the packed layouts, which the port does not have) and the same keyword
+arguments to the evaluator, ``-from_name`` included; the checkpoint file is
+restored in any of the three layouts; ``-dtype bfloat16`` builds the
+generator in bfloat16 (its labels against the JAX CLI's:
+``tests/test_torch_port_bf16.py``). The evaluators are stubbed, as ``tests/test_eval_cli.py`` does,
 and both packages' presets made tiny (``filters=4, n_block=2,
 crop_size=32, fc_inch=9``) through their late binding; on the JAX side the
 state creation and restore are stubbed too (they need an Orbax directory and
@@ -25,7 +26,7 @@ from pointcloududa_torch.train.state import build_models
 from test_torch_port_step import one_torch_thread  # noqa: F401
 
 TINY = dict(filters=4, n_block=2, crop_size=32, fc_inch=9)
-NOT_IN_THE_PORT = {"compute_dtype", "packed_level0", "packed_level1", "packed_compute"}
+NOT_IN_THE_PORT = {"packed_level0", "packed_level1", "packed_compute"}
 
 
 @pytest.fixture
@@ -136,14 +137,25 @@ def test_evaluate_mmwhs_cli_equals_the_jax_cli(tiny_presets, tmp_path, monkeypat
     assert (port_calls[0].cfg.d4, port_calls[0].cfg.extpn) == (d4, extpn)
 
 
-@pytest.mark.parametrize("cli,flag", [(evaluate_mscmrseg, "-model_dir"), (evaluate_mmwhs, "-weight_dir")], ids=["mscmrseg", "mmwhs"])
-def test_bfloat16_is_refused_before_anything_is_built(cli, flag, monkeypatch):
-    def built(*a, **k):
-        raise AssertionError("a generator was built")
+@pytest.mark.parametrize("cli,flag,preset,evaluator", [
+    (evaluate_mscmrseg, "-model_dir", "mscmrseg_default", "evaluate_mscmrseg"),
+    (evaluate_mmwhs, "-weight_dir", "mmwhs_default", "evaluate_mmwhs"),
+], ids=["mscmrseg", "mmwhs"])
+def test_bfloat16_builds_the_generator_in_bfloat16(tiny_presets, tmp_path, monkeypatch, cli, flag, preset, evaluator):
+    """``-dtype bfloat16`` reaches the config and the generator: its layers
+    compute in bf16 and it holds the file's f32 weights (a checkpoint
+    written by a float32 run)."""
+    from pointcloududa_torch.models.unet import Conv2d
 
-    monkeypatch.setattr(cli, "restored_generator", built)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
-        cli.main([flag, "no-such-file", "-dtype", "bfloat16"], device="cpu")
+    path = str(tmp_path / "gen.pt")
+    weights = _write(path, dataclasses.replace(getattr(port_config, preset)(), compute_dtype="float32"), "bare")
+    calls = _stub(monkeypatch, port_volume, evaluator)
+    cli.main([flag, path, "-dtype", "bfloat16"], device="cpu")
+    gen = calls[0].gen
+    assert calls[0].cfg.compute_dtype == "bfloat16" and gen.compute_dtype == torch.bfloat16
+    assert all(m.compute_dtype == torch.bfloat16 for m in gen.modules() if isinstance(m, Conv2d))
+    assert all(p.dtype == torch.float32 for p in gen.parameters())
+    assert all(torch.equal(gen.state_dict()[k], v) for k, v in weights.items())
 
 
 def test_a_file_of_another_network_does_not_load(tiny_presets, tmp_path):

@@ -259,9 +259,36 @@ def test_generator_lr_roundtrip():
 
 @pytest.mark.parametrize(
     "bad",
-    [dict(packed_level0=True), dict(packed_compute=True, packed_level0=True), dict(compute_dtype="bfloat16"),
+    [dict(packed_level0=True), dict(packed_compute=True, packed_level0=True), dict(compute_dtype="float16"),
      dict(bn_stats_impl="pallas", num_devices=2), dict(torch_bn_stats=False)],
 )
 def test_rejected_configs(bad):
     with pytest.raises(ValueError):
         create_train_state(_cfg(**bad), device="cpu")
+
+
+@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
+def test_bfloat16_state_builds_and_steps(impls):
+    """``compute_dtype="bfloat16"``: every network computes in bf16 (its
+    conv and linear layers, its input cast), its weights, their gradients
+    and the optimisers' moments stay f32; two steps of D1+D2+D4 give finite
+    metrics and move every network's weights. (The numbers against JAX's
+    bf16 step: tests/test_torch_port_bf16.py.)"""
+    from pointcloududa_torch.models.unet import Conv2d, Linear
+
+    cfg = _cfg(d4=True, compute_dtype="bfloat16", **impls)
+    st = create_train_state(cfg, seed=0, device="cpu")
+    for model in st.models:
+        layers = [m for m in model.modules() if isinstance(m, (Conv2d, Linear))]
+        assert layers and all(m.compute_dtype == torch.bfloat16 for m in layers)
+    assert st.models[0].classifier.__class__ is torch.nn.Conv2d  # the classifier stays f32
+    before = [{k: v.clone() for k, v in m.state_dict().items()} for m in st.models]
+    step = make_train_step(cfg, st.models, st.optimizers)
+    for i in range(2):
+        st, metrics = step(st, synthetic_batch(cfg, BS, seed=i))
+        assert all(v.dtype == torch.float32 and bool(torch.isfinite(v)) for v in metrics.values())
+    for model, opt, old in zip(st.models, st.optimizers, before):
+        assert all(p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32) for p in model.parameters())
+        assert all(t.dtype == torch.float32 for s in opt.state.values() for t in s.values() if torch.is_tensor(t) and t.dim())
+        assert any(not torch.equal(v, old[k]) for k, v in model.state_dict().items() if v.is_floating_point())
+    assert st.step == 2
