@@ -20,7 +20,13 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS), for a
       float32 and a bfloat16 activation (f32 statistics at the f32
       sum-order tolerance, a bf16 dx within 1 bf16 ulp of the plain
-      version's, both bit-equal on a repeat), and a float16 one refused;
+      version's, both bit-equal on a repeat, each call one CUDA kernel in a
+      profiler trace), and a float16 one refused; each time beside its
+      bound, the plain version's and the library call's (``torch.var_mean``
+      forward, ``torch.addcmul`` backward), the launch plan at each shape
+      (cluster size, values a load, the card's clusters at once), the
+      forward in clusters of 1, 2, 4, 8 and the backward in one wave at the
+      32-channel bf16 shapes;
   (c) the MS-CMRSeg triple-adversary train step (generator + D1 + D2 + D4,
       bs 16, 224^2, float32, both kernels on): two steps on synthetic
       batches, every metric finite, every kernel launched, the BatchNorm
@@ -182,6 +188,7 @@ RUN_SLICES = {"mr_train": 32, "ct_train": 32, "mr_val": 16, "ct_val": 16}
 # against them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+L2_BYTES = 50e6
 # Assumed least cost of one FPS round, whatever the design: the round's point
 # is known only after a reduction over the whole cloud (within a block, then
 # across the blocks that share the cloud: two barriers and their hand-overs,
@@ -433,14 +440,33 @@ def _bf16_ulps(torch, got, want) -> float:
     return float(((got.float() - want).abs() / ulp).max())
 
 
+def _kernel_names(torch, fn) -> list:
+    """Names of the CUDA kernels in one profiler trace of ``fn``, in the
+    order they start. On the H100 a trace can lose kernels (7 of 40 traces
+    of the same 32 calls held fewer, some none), never gain any: a caller
+    that needs every kernel takes traces until one is complete."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return [e.name for e in sorted(kernels, key=lambda e: e.time_range.start)]
+
+
 def phase_bn(torch, dev, rec):
     """(b) BN-statistics kernels against their plain versions, on the shapes
     of both paths, for a float32 and a bfloat16 activation (the bf16
     instantiation reads 2 bytes an element and widens in registers; its
-    statistics are f32, its dx bf16)."""
+    statistics are f32, its dx bf16); each call one CUDA kernel; the launch
+    plan at each shape, the forward's cluster size and the backward's grid
+    against alternatives at the 32-channel bf16 shapes, and the card's
+    clusters at once for the plan."""
     from pointcloududa_torch.ops import bn_kernel as bk
     from pointcloududa_torch.utils.timing import graph_ms
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(1)
     for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
         fwd_name, bwd_name = "bn_stats_forward" + suffix, "bn_stats_backward" + suffix
@@ -449,7 +475,8 @@ def phase_bn(torch, dev, rec):
             fwd_err = bwd_err = 0.0
             for shape in shapes:
                 x = (torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2).to(dtype)
-                c = shape[1]
+                outer, c, inner = bk._layout(x)
+                n = outer * inner
                 mk, qk = bk.stats_forward(x)
                 mp, qp = bk.stats_forward_plain(x)
                 # f32 sums over up to 1,048,576 values in another order than PyTorch's
@@ -472,6 +499,13 @@ def phase_bn(torch, dev, rec):
                     _require(dk.dtype == torch.bfloat16 and ulps <= 1.0, f"BN backward (bf16) {ulps} ulps from plain at {shape}")
                 _require(torch.equal(dk, bk.stats_backward(x, gm, gq)), f"BN backward ({dtype}) not bit-reproducible")
                 bwd_err = max(bwd_err, err)
+                fplan = bk.forward_plan(outer, c, inner, dtype, bk._aligned(x), sms)
+                bplan = bk.backward_plan(outer, c, inner, dtype, bk._aligned(x, dk))
+                at_once = bk.forward_clusters(dtype, fplan.vec, fplan.cluster, dev)
+                # the two per-channel vectors of the backward's library call, made outside the timed call
+                a = (gm * (1.0 / n)).view(1, c, 1, 1)
+                b = (gq * (2.0 / n)).view(1, c, 1, 1)
+                dl = torch.empty_like(x)
                 # forward: x in, 2 C floats out, 3 operations per element; backward:
                 # x and 2 C floats in, dx out, 3 operations per element
                 fwd = dict(
@@ -481,20 +515,43 @@ def phase_bn(torch, dev, rec):
                     # yardstick only, the port never calls it (of a bf16 x it
                     # returns bf16 statistics: rounded, where the kernel's are f32)
                     library_ms=graph_ms(lambda: torch.var_mean(x, dim=(0, 2, 3), correction=0)),
+                    cluster=fplan.cluster, vec=fplan.vec, clusters_at_once=at_once,
                     **_bound(x.numel() * size + 2 * c * 4, 3 * x.numel()),
                 )
                 bwd = dict(
                     shape=list(shape), dtype=fwd["dtype"], ms=graph_ms(lambda: bk.stats_backward(x, gm, gq)),
-                    plain_ms=graph_ms(lambda: bk.stats_backward_plain(x, gm, gq)), library_ms=None,
+                    plain_ms=graph_ms(lambda: bk.stats_backward_plain(x, gm, gq)),
+                    # one PyTorch call computing dx = a + x * b in f32, rounded once
+                    # into dx's type (a yardstick only, never called by the port)
+                    library_ms=graph_ms(lambda: torch.addcmul(a, x, b, out=dl)),
+                    vec=bplan.vec, blocks=bplan.blocks,
                     **_bound(2 * x.numel() * size + 2 * c * 4, 3 * x.numel()),
                 )
+                if dtype == torch.bfloat16 and c == 32:  # the plans against their alternatives
+                    fwd["by_cluster_ms"] = [
+                        graph_ms(lambda: bk._launch_forward(x, bk.forward_plan(outer, c, inner, dtype, True, cluster=s)))
+                        for s in (1, 2, 4, 8)]
+                    # the backward in one wave of 4 blocks an SM, each thread taking several rounds
+                    bwd["one_wave_ms"] = graph_ms(lambda: bk._launch_backward(x, gm, gq, dl, bplan._replace(blocks=4 * sms)))
+                # what a call moves, against the 50 MB L2 that keeps it across graph_ms's 20 calls
+                l2 = {k: " (L2-resident)" if m * x.numel() * size <= L2_BYTES else "" for k, m in (("fwd", 1), ("bwd", 2))}
                 print(f"  bn_stats {fwd['dtype']} {path} {shape}: fwd kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
-                      f"torch.var_mean {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}), bwd kernel {bwd['ms']:.4f} ms "
-                      f"(plain {bwd['plain_ms']:.4f}, bound {bwd['bound_ms']:.4f})")
+                      f"torch.var_mean {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f}: {fwd['bound_ms'] / fwd['ms']:.0%} "
+                      f"of bound{l2['fwd']}, {fwd['library_ms'] / fwd['ms']:.2f}x ahead of the library), bwd kernel "
+                      f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, torch.addcmul {bwd['library_ms']:.4f}, bound "
+                      f"{bwd['bound_ms']:.4f}: {bwd['bound_ms'] / bwd['ms']:.0%} of bound{l2['bwd']}, "
+                      f"{bwd['library_ms'] / bwd['ms']:.2f}x ahead of the library)")
+                print(f"    plan: forward clusters of {fplan.cluster} ({c * fplan.cluster} blocks; {at_once} such clusters "
+                      f"at once on the card, {c} needed for one wave), {fplan.vec} values a load, {fplan.chunk} loads a "
+                      f"block; backward {bplan.blocks} blocks, {bplan.vec} values a load")
+                if "by_cluster_ms" in fwd:
+                    print(f"    forward in clusters of 1, 2, 4, 8: " + ", ".join(f"{t:.4f}" for t in fwd["by_cluster_ms"])
+                          + f" ms (the plan takes {fplan.cluster}); backward in one wave of {4 * sms} blocks "
+                          f"{bwd['one_wave_ms']:.4f} ms against the plan's {bplan.blocks} blocks {bwd['ms']:.4f} ms")
                 if shape == shapes[0]:  # the kernel table carries each path's largest shape
                     rec[fwd_name].setdefault("by_path", {})[path + suffix] = fwd
                     rec[bwd_name].setdefault("by_path", {})[path + suffix] = bwd
-                del x, dk, dp
+                del x, dk, dp, dl
             rec[fwd_name]["by_path"][path + suffix]["max_abs_err"] = fwd_err
             rec[bwd_name]["by_path"][path + suffix]["max_abs_err"] = bwd_err
             print(f"  bn_stats {dtype} {path} max|err| over its four shapes: fwd {fwd_err:.3g}, bwd {bwd_err:.3g}")
@@ -502,6 +559,28 @@ def phase_bn(torch, dev, rec):
         for name in (fwd_name, bwd_name):
             by_path = rec[name]["by_path"]
             rec[name].update(by_path["mmwhs" + suffix], max_abs_err=max(v["max_abs_err"] for v in by_path.values()))
+    # one CUDA kernel a call: traces over a forward and a backward call at every shape in both dtypes, until
+    # one holds exactly the calls' kernels in order (at most 10; see _kernel_names)
+    inputs = [((torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2).to(dtype),
+               torch.randn(shape[1], generator=gen, device=dev))
+              for dtype in (torch.float32, torch.bfloat16) for shapes in BN_SHAPES.values() for shape in shapes]
+    want = ["stats_forward_kernel", "stats_backward_kernel"] * len(inputs)
+
+    def complete(names):
+        return len(names) == len(want) and all(w in n for w, n in zip(want, names))
+
+    counts, names = [], []
+    while len(counts) < 10 and not complete(names):
+        names = _kernel_names(torch, lambda: [(bk.stats_forward(x), bk.stats_backward(x, g, g)) for x, g in inputs])
+        counts.append(len(names))
+    _require(complete(names), f"{len(inputs)} forward and backward calls: no trace of {counts} kernels holds one "
+             f"forward and one backward kernel a call; the last: {names}")
+    print(f"  one CUDA kernel a call: the trace of a forward and a backward call at each of the {len(inputs)} shapes and "
+          f"dtypes holds {len(names)} kernels, a forward and a backward kernel in turn (trace {len(counts)}; kernels "
+          f"in each: {counts})")
+    del inputs
+    print("  note: graph_ms replays 20 captured calls back to back; where a call moves at most the L2's 50 MB (marked "
+          "L2-resident) x stays in L2 from call to call, so a share of the HBM bound near or above 100% there is L2's doing")
     half = torch.zeros((4, 8, 6, 6), dtype=torch.float16, device=dev)
     for fn in (lambda: bk.stats_forward(half), lambda: bk.stats_backward(half, half[0, :, 0, 0].float(), half[0, :, 0, 0].float())):
         try:
@@ -1777,8 +1856,8 @@ BF16_LABEL_SHARE = 0.05
 # a profiled step's kernels by kind, on their names (the first kind that matches)
 KERNEL_KINDS = (
     ("layout transform", ("nchwToNhwc", "nhwcToNchw")),
-    ("port kernels", ("stats_partial_kernel", "stats_final_kernel", "stats_backward_kernel", "fused_forward_kernel",
-                      "side_grad_kernel", "fps_kernel")),
+    ("port kernels", ("stats_forward_kernel", "stats_backward_kernel", "fused_forward_kernel", "side_grad_kernel",
+                      "fps_kernel")),
     ("convolution", ("implicit_gemm", "fprop", "dgrad", "wgrad", "conv", "cudnn")),
     ("matmul", ("gemm",)),
     ("convolution", ("xmma", "cutlass")),
@@ -2035,7 +2114,7 @@ def main() -> int:
     t0 = time.perf_counter()
     native.load()
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {native.library_path()}")
-    usage = [ln.strip() for ln in native.build_log.splitlines() if "registers" in ln or "Compiling entry" in ln]
+    usage = [ln.strip() for ln in native.build_log.splitlines() if any(k in ln for k in ("registers", "Compiling entry", "spill"))]
     for ln in usage:
         print(f"  ptxas: {ln}")
 

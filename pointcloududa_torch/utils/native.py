@@ -41,10 +41,11 @@ SIGNATURES = {
     "pcuda_chamfer_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_chamfer_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
     "pcuda_chamfer_side_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pcuda_bn_stats_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pcuda_bn_stats_forward_bf16": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pcuda_bn_stats_backward": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "pcuda_bn_stats_backward_bf16": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "pcuda_bn_stats_forward": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pcuda_bn_stats_forward_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "pcuda_bn_stats_backward": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pcuda_bn_stats_backward_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pcuda_bn_stats_forward_clusters": (_I, _I, _I, _P),
     "pcuda_fps": (_P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pcuda_fps_configure": (_P,),
     "pcuda_empty_launch": (_P,),

@@ -125,11 +125,21 @@ def test_chamfer_wrappers_reject_what_the_kernel_does_not_take(dev):
         chamfer_kernel.forward_fused(x, y[:1])
 
 
-@pytest.mark.parametrize("shape", [(16, 32, 56, 56), (4, 24, 7, 9), (1000, 32), (8, 64, 28, 28), (8, 16, 20, 20)])
-def test_bn_stats_kernels_match_plain(dev, shape):
+@pytest.mark.parametrize("shape,offset", [((16, 32, 56, 56), 0), ((4, 24, 7, 9), 0), ((1000, 32), 0), ((8, 64, 28, 28), 0),
+                                          ((8, 16, 20, 20), 0), ((8, 64, 28, 28), 1), ((16, 256, 28, 28), 0), ((3, 1, 45, 45), 0)],
+                         ids=["vectors", "inner-63", "rows", "vectors-64", "small", "misaligned", "one-block", "one-channel"])
+def test_bn_stats_kernels_match_plain(dev, shape, offset):
+    """float32 x: the statistics at 1e-5 (f32 sums in another order), dx at
+    1e-6 relative, both bit-equal on a repeat, one launch a wrapper call.
+    ``inner`` divisible by 4 on an aligned tensor reads and writes 16-byte
+    vectors; 63, 1, 2025 and a tensor that starts 4 bytes past an aligned
+    address one value at a time. The plans take clusters of 8 (32 channels),
+    4 (64) and 1 (256 channels: one block a channel)."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2
+    n = int(np.prod(shape))
+    x = (torch.randn(n + offset, generator=gen, device=dev) * 0.7 + 0.2)[offset:].view(shape)
     c = shape[1]
+    before = (bn_kernel.stats_forward.launches, bn_kernel.stats_backward.launches)
     m, q = bn_kernel.stats_forward(x)
     pm, pq = bn_kernel.stats_forward_plain(x)
     torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
@@ -140,6 +150,47 @@ def test_bn_stats_kernels_match_plain(dev, shape):
     gq = torch.randn(c, generator=gen, device=dev)
     dx = bn_kernel.stats_backward(x, gm, gq)
     torch.testing.assert_close(dx, bn_kernel.stats_backward_plain(x, gm, gq), rtol=1e-6, atol=1e-7)
+    assert torch.equal(dx, bn_kernel.stats_backward(x, gm, gq))
+    assert (bn_kernel.stats_forward.launches - before[0], bn_kernel.stats_backward.launches - before[1]) == (2, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_bn_stats_forward_in_every_cluster_size(dev, cluster, dtype):
+    """Whatever the blocks a channel (the ranks' ranges ending inside a
+    plane, on the vector and the scalar path, ranks with 2 groups each), the
+    statistics are the plain version's at 1e-5 and the same bits on a
+    repeat; a cluster of 16 is refused and raises."""
+    gen = torch.Generator(device=dev).manual_seed(cluster)
+    for shape in ((16, 32, 56, 56), (3, 5, 37, 41), (2, 7, 8, 8)):
+        x = (torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2).to(dtype)
+        outer, c, inner = bn_kernel._layout(x)
+        plan = bn_kernel.forward_plan(outer, c, inner, dtype, bn_kernel._aligned(x), cluster=cluster)
+        m, q = bn_kernel._launch_forward(x, plan)
+        pm, pq = bn_kernel.stats_forward_plain(x)
+        torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(q, pq, rtol=1e-5, atol=1e-5)
+        m2, q2 = bn_kernel._launch_forward(x, plan)
+        assert torch.equal(m, m2) and torch.equal(q, q2)
+    before = bn_kernel.stats_forward.launches
+    with pytest.raises(RuntimeError):
+        bn_kernel._launch_forward(x, bn_kernel.forward_plan(outer, c, inner, dtype, True, cluster=16))
+    assert bn_kernel.stats_forward.launches == before
+    assert torch.equal(bn_kernel._launch_forward(x, plan)[0], m)  # the error does not linger
+
+
+def test_bn_forward_plans_fit_one_wave(dev):
+    """At every BatchNorm shape of both paths the card runs all C clusters of
+    the plan's size at once (the occupancy calculator on the forward kernel
+    itself, with its block size and shared memory)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for size in (224, 256):
+        for k in range(4):
+            outer, c, inner = 16, 32 << k, (size >> k) ** 2
+            for dtype in (torch.float32, torch.bfloat16):
+                plan = bn_kernel.forward_plan(outer, c, inner, dtype, True, sms=sms)
+                assert plan.cluster == 8 >> k
+                assert bn_kernel.forward_clusters(dtype, plan.vec, plan.cluster, dev) >= c
 
 
 def _bf16_ulps(got, want):
@@ -149,8 +200,8 @@ def _bf16_ulps(got, want):
 
 
 @pytest.mark.parametrize("shape,offset", [((16, 32, 56, 56), 0), ((4, 24, 7, 9), 0), ((1000, 32), 0), ((8, 64, 28, 28), 1),
-                                          ((2, 16, 8, 8), 0)],
-                         ids=["vectors", "inner-63", "rows", "misaligned", "small"])
+                                          ((2, 16, 8, 8), 0), ((16, 256, 28, 28), 0), ((3, 1, 45, 45), 0)],
+                         ids=["vectors", "inner-63", "rows", "misaligned", "small", "one-block", "one-channel"])
 def test_bn_stats_bf16_kernels_match_plain(dev, shape, offset):
     """bfloat16 x, widened in registers: the statistics at the float32
     tolerance, dx within 1 bfloat16 ulp of the plain version's (both compute
