@@ -11,10 +11,26 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       (more blocks than one wave); a cloud of duplicated points (ties go to
       the lowest index; points that no partner chose) and one point chosen
       by every partner; the backward run twice for equal bits, and timed
-      with 1 to 32 threads a point beside the wrapper's choice; the forward
-      timed beside the earlier route (two one-direction launches and five
-      PyTorch launches), beside an empty kernel's launch, and in clusters
-      of 1 to 8 blocks beside the clusters of each size the card runs at once;
+      with 1 to 32 threads a point beside the wrapper's choice; the loss on
+      the route the TPU package takes (the fused forward up to 512 x 512
+      pairs, two one-direction searches above); the forward timed beside
+      the large-cloud route, beside an empty kernel's launch, and in
+      clusters of 1 to 8 blocks beside the clusters of each size the card
+      runs at once. The one-direction search (``nn_kernel``) at (B, N, M) =
+      (2, 2048, 2048), (16, 2048, 2048), (1, 8192, 8192), (2, 600, 530),
+      (16, 300, 300), (3, 257, 40), (1, 1, 5) on uniform and on
+      integer-grid (tie-heavy) clouds: argmins equal and minima bit-equal
+      to the plain version's, repeat runs bit-equal; every launch plan
+      forced once (lanes 1..32 x clusters 1..8)
+      on a tie-heavy cloud and on duplicated points; a plan the kernel
+      cannot take refused; at the first three shapes its time beside the
+      plain version's, its bound (the instructions the function needs),
+      what its SASS issues a pair, ``torch.cdist`` +
+      ``min`` (two calls, printed only), both routes' whole forward and the
+      time by plan; then the large-cloud path (``by_path.chamfer_large``):
+      ``chamfer_loss(x, y).backward()`` at (2, 2048, 2048) with exactly 2
+      one-direction, 0 fused and 2 backward launches, its loss and
+      gradients against the plain versions;
   (b) BN statistics: forward and backward kernels against their plain
       versions, and timed, at every BatchNorm shape of the generator on
       both paths: bs 16 at 224^2 (MS-CMRSeg) and at 256^2 (MM-WHS), for a
@@ -169,6 +185,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -188,6 +205,20 @@ RUN_SLICES = {"mr_train": 32, "ct_train": 32, "mr_val": 16, "ct_val": 16}
 # against them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# Issued instructions a second: 132 SMs x 128 lanes x 1.98 GHz (the boost
+# clock). Most of a Chamfer forward's pair is compares, selects and a clamp,
+# one issued instruction each, so their bounds count the instructions a pair
+# needs, with FMA allowed: one direction's search (nn_kernel) is 7 (3 FFMA
+# on (-2c, |c|^2) with |a|^2 added once a query and the clamp moved to
+# -|a|^2, a compare and two selects for the running minimum); the fused
+# forward needs the distance once (3 FFMA and the other norm's FADD), the
+# clamp, and a compare and two selects in either direction: 11. The kernels
+# issue more (no FMA, so that their minima are the plain version's bits;
+# phase (a) prints what nn_kernel's SASS issues, ``cuobjdump -sass``). The
+# figure at the FMA peak stays beside them (``fma_peak_ms``).
+INSTR_PER_S = 132 * 128 * 1.98e9
+NN_PAIR_INSTRUCTIONS = 7
+FUSED_PAIR_INSTRUCTIONS = 11
 L2_BYTES = 50e6
 # Assumed least cost of one FPS round, whatever the design: the round's point
 # is known only after a reduction over the whole cloud (within a block, then
@@ -252,18 +283,24 @@ KERNELS = {
 BF16_ROWS = {"bn_stats_forward_bf16", "bn_stats_backward_bf16"}
 
 
-def _bound(nbytes: float, flops: float, chain_ms: float = 0.0) -> dict:
+def _bound(nbytes: float, flops: float, chain_ms: float = 0.0, instructions: float | None = None) -> dict:
     """The least time the card could take: the bytes the function must move
     (each input read once, each output written once) over the HBM peak, its
-    operations over the float32 peak, or ``chain_ms``, the time of operations
-    that must follow one another, whichever is largest. ``bound_by`` names a
-    chain as "operations" (it is the operations' dependence, not their
-    number, that binds) and ``bound_note`` says so."""
+    operations over the float32 peak (or, given ``instructions``, those over
+    INSTR_PER_S, with the FMA-peak figure beside as ``fma_peak_ms``), or
+    ``chain_ms``, the time of operations that must follow one another,
+    whichever is largest. ``bound_by`` names a chain as "operations" (it is
+    the operations' dependence, not their number, that binds) and
+    ``bound_note`` says so."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    extra = {}
+    if instructions is not None:
+        extra = dict(bound_note="instructions needed (FMA allowed) over 132 SMs x 128 lanes x 1.98 GHz", fma_peak_ms=t_ops)
+        t_ops = instructions / INSTR_PER_S * 1e3
     if chain_ms > max(t_bytes, t_ops):
         return dict(bound_ms=chain_ms, bound_by="operations", bound_note="serial chain",
                     bytes_ms=t_bytes, operations_ms=t_ops)
-    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations", **extra)
 
 
 def _max_err(a, b) -> float:
@@ -273,14 +310,6 @@ def _max_err(a, b) -> float:
 def _require(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
-
-
-def _earlier_forward(torch, ck, x, y):
-    """The forward as it ran before the one-launch kernel: two one-direction
-    launches, then five PyTorch launches. Timed only, beside the new route."""
-    min1, _ = ck.nn_directional(x, y)
-    min2, _ = ck.nn_directional(y, x)
-    return torch.mean(torch.sqrt(min1 + ck.EPS)) + torch.mean(torch.sqrt(min2 + ck.EPS))
 
 
 def phase_chamfer(torch, dev, rec, card):
@@ -295,7 +324,7 @@ def phase_chamfer(torch, dev, rec, card):
     print(f"  an empty kernel's launch by graph replay: {floor_ms:.5f} ms (the floor under any one-launch kernel), on {card}")
 
     rng = np.random.default_rng(0)
-    nn_err = fwd_err = bwd_err = 0.0
+    fwd_err = bwd_err = 0.0
     # B=40: more blocks than one wave of the backward's grid
     for b, n, m in ((16, 300, 300), (2, 2048, 2048), (3, 300, 77), (40, 300, 300)):
         x = torch.tensor(rng.uniform(size=(b, n, 3)), dtype=torch.float32, device=dev)
@@ -303,9 +332,7 @@ def phase_chamfer(torch, dev, rec, card):
         (m1, i1), (m2, i2) = ck.nn_directional(x, y), ck.nn_directional(y, x)
         (p1, j1), (p2, j2) = ck.nn_directional_plain(x, y), ck.nn_directional_plain(y, x)
         _require(torch.equal(i1, j1) and torch.equal(i2, j2), f"argmin mismatch at B={b} N={n} M={m}")
-        err_min = max(_max_err(m1, p1), _max_err(m2, p2))
-        _require(err_min <= 1e-6, f"nn minima differ by {err_min} at B={b} N={n} M={m}")
-        nn_err = max(nn_err, err_min)
+        _require(torch.equal(m1, p1) and torch.equal(m2, p2), f"nn minima not bit-equal at B={b} N={n} M={m}")
         # the whole forward in one launch: both argmin lists, the per-item means, twice the same bits
         parts, f1, f2 = ck.forward_fused(x, y)
         want_parts, w1, w2 = ck.forward_fused_plain(x, y)
@@ -326,29 +353,20 @@ def phase_chamfer(torch, dev, rec, card):
         bwd_err = max(bwd_err, err_grad)
         _require(torch.equal(ck.side_grad(x, y, i1, i2, g), dx) and torch.equal(ck.side_grad(y, x, i2, i1, g), dy),
                  "chamfer backward not bit-reproducible")
-        # the autograd path runs the fused forward and the backward kernel and returns the same gradient
+        # the autograd path takes the TPU package's route and returns the same gradient
         xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
         before = ck.forward_fused.launches, ck.nn_directional.launches
         ck.chamfer_loss(xg, yg).backward()
-        _require((ck.forward_fused.launches, ck.nn_directional.launches) == (before[0] + 1, before[1]),
-                 "chamfer_loss must make one fused forward launch and no one-direction launch")
+        route = (1, 0) if ck.fused_route(n, m) else (0, 2)
+        _require((ck.forward_fused.launches - before[0], ck.nn_directional.launches - before[1]) == route,
+                 f"chamfer_loss at N={n} M={m} must make {route[0]} fused and {route[1]} one-direction launches")
         _require(torch.equal(xg.grad, dx) and torch.equal(yg.grad, dy), "autograd gradient differs")
-        print(f"  chamfer B={b} N={n} M={m}: loss {float(loss):.7f} (plain {float(ref):.7f}), argmins equal (one-launch "
-              f"forward and one-direction search), max|dparts| {err_parts:.3g}, max|dmin| {err_min:.3g}, "
-              f"max|dgrad| {err_grad:.3g}, repeat run bit-equal")
-        if n > 512:  # the TPU's tiled regime (N*M > 512^2): the one-direction search's row of the table
-            rec["chamfer_nn_forward"].update(
-                ms=graph_ms(lambda: ck.nn_directional(x, y)), plain_ms=graph_ms(lambda: ck.nn_directional_plain(x, y)),
-                library_ms=None, shape=[b, n, m], **_bound(b * (n + m) * 12 + b * n * 8, b * n * m * 9),
-            )
-            r = rec["chamfer_nn_forward"]
-            fused_ms, earlier_ms = graph_ms(lambda: ck.forward_fused(x, y)), graph_ms(lambda: _earlier_forward(torch, ck, x, y))
+        print(f"  chamfer B={b} N={n} M={m}: loss {float(loss):.7f} (plain {float(ref):.7f}) on the "
+              f"{'fused' if route[0] else 'large-cloud'} route, argmins equal (one-launch forward and one-direction "
+              f"search), minima bit-equal, max|dparts| {err_parts:.3g}, max|dgrad| {err_grad:.3g}, repeat run bit-equal")
+        if n > 512:
             print(f"  chamfer_backward B={b} N=M={n}: kernel {graph_ms(lambda: ck.side_grad(x, y, i1, i2, g)):.4f} ms with "
                   f"{ck.backward_lanes(b, n, dev)} threads a point, plain {graph_ms(lambda: ck.side_grad_plain(x, y, i1, i2, g)):.4f} ms, on {card}")
-            print(f"  chamfer_nn_forward B={b} N=M={n}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"bound {r['bound_ms']:.6f} ms by {r['bound_by']}; the whole forward there: one launch {fused_ms:.4f} ms, "
-                  f"earlier route {earlier_ms:.4f} ms, on {card}")
-    rec["chamfer_nn_forward"]["max_abs_err"] = nn_err
     # duplicated points: every point appears twice; ties go to the lowest index
     base = torch.tensor(rng.uniform(size=(2, 100, 3)), dtype=torch.float32, device=dev)
     dup = torch.cat([base, base], dim=1).contiguous()
@@ -386,11 +404,11 @@ def phase_chamfer(torch, dev, rec, card):
         ms=graph_ms(lambda: ck.forward_fused(x, y)),
         plain_ms=graph_ms(lambda: ck.forward_fused_plain(x, y)),
         library_ms=None,
-        earlier_ms=graph_ms(lambda: _earlier_forward(torch, ck, x, y)),
+        large_route_ms=graph_ms(lambda: ck._large_forward_loss(x, y)),
         one_direction_ms=graph_ms(lambda: ck.nn_directional(x, y)),
         launch_floor_ms=floor_ms,
         cluster=native.cluster_size(b, dev),
-        **_bound(b * (n + m) * 12 + b * (n + m) * 4 + b * 8, b * n * m * 11),
+        **_bound(b * (n + m) * 12 + b * (n + m) * 4 + b * 8, b * n * m * 11, instructions=b * n * m * FUSED_PAIR_INSTRUCTIONS),
     )
     # backward, one cloud: both clouds, both argmin lists and g in, the
     # gradient out; per point of either cloud one unit vector (~12 operations)
@@ -413,14 +431,171 @@ def phase_chamfer(torch, dev, rec, card):
     print(f"  clusters of 1..8 blocks, one block to an SM, that the card runs at once: {at_once}")
     print(f"  chamfer_forward B=16 N=M=300 in clusters of 1..8 blocks: "
           + ", ".join(f"{t:.4f}" for t in r["by_cluster_ms"]) + f" ms (the wrapper takes {r['cluster']}), on {card}")
-    print(f"  chamfer_forward B=16 N=M=300: one launch {r['ms']:.4f} ms in clusters of {r['cluster']} blocks; earlier route (two one-direction launches of "
-          f"{r['one_direction_ms']:.4f} ms and five PyTorch launches) {r['earlier_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
-          f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (an empty launch costs {floor_ms:.5f} ms), on {card}")
+    print(f"  chamfer_forward B=16 N=M=300: one launch {r['ms']:.4f} ms in clusters of {r['cluster']} blocks; the large-cloud "
+          f"route (two one-direction launches of {r['one_direction_ms']:.4f} ms and five PyTorch launches) "
+          f"{r['large_route_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; bound {r['bound_ms']:.6f} ms by {r['bound_by']} "
+          f"({r['bound_note']}; at the FMA peak {r['fma_peak_ms']:.6f}; an empty launch costs {floor_ms:.5f} ms), on {card}")
     r = rec["chamfer_backward"]
     print(f"  chamfer_backward B=16 N=M=300 with 1, 2, 4, 8, 16, 32 threads a point: "
           + ", ".join(f"{t:.4f}" for t in r["by_lanes_ms"]) + f" ms (the wrapper takes {r['lanes']}), on {card}")
     print(f"  chamfer_backward B=16 N=M=300: kernel {r['ms']:.4f} ms with {r['lanes']} threads a point, plain {r['plain_ms']:.4f} ms, "
           f"bound {r['bound_ms']:.6f} ms by {r['bound_by']} (an empty launch costs {floor_ms:.5f} ms), repeat runs bit-equal, on {card}")
+    phase_nn(torch, dev, rec, card)
+
+
+# the one-direction search's shapes in phase (a): the first three are timed
+# (the row of the kernels line is the first); (2, 600, 530) is the CPU
+# tests' large-route shape, (16, 300, 300) the training clouds' size
+NN_SHAPES = ((2, 2048, 2048), (16, 2048, 2048), (1, 8192, 8192), (2, 600, 530), (16, 300, 300), (3, 257, 40), (1, 1, 5))
+NN_TIMED = 3
+
+
+def _nn_clouds(torch, rng, dev, b, n, m, grid: bool):
+    """Uniform clouds in [0, 1)^3, or the same snapped to a grid of 1/8,
+    where many distances tie exactly."""
+    def one(k):
+        u = rng.uniform(size=(b, k, 3))
+        return torch.tensor(np.round(u * 8) / 8 if grid else u, dtype=torch.float32, device=dev)
+    return one(n), one(m)
+
+
+# the opcodes of a pair's own arithmetic in nn_kernel's walk (the rest is
+# the loop's: loads, index and address arithmetic, the branch)
+PAIR_OPCODES = ("FMUL", "FADD", "FMNMX", "FSETP", "SEL")
+
+
+def _walk_sass(sass: str, marker: str, pairs: int) -> dict:
+    """Instructions of a kernel's innermost loop that holds ``pairs`` x 3
+    FMULs (``nn_kernel``'s unrolled walk: 4 partners x 4 queries), from
+    ``cuobjdump -sass`` output: those a pair issues in all, and those of the
+    pair's own arithmetic (PAIR_OPCODES)."""
+    body = next(f for f in sass.split("Function : ")[1:] if marker in f.split("\n", 1)[0])
+    code = [(int(a, 16), ins.split()) for a, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    ops = [(a, words[1] if words[0].startswith("@") else words[0], words[-1]) for a, words in code]
+    loops = []
+    for addr, op, target in ops:
+        if op == "BRA" and target.startswith("0x") and int(target, 16) < addr:
+            loop = [o.split(".")[0] for a, o, _ in ops if int(target, 16) <= a <= addr]
+            if loop.count("FMUL") == 3 * pairs and "FSETP" in loop:  # not the staging loop
+                loops.append(loop)
+    loop = min(loops, key=len)
+    return dict(per_pair=len(loop) / pairs, own_per_pair=sum(loop.count(o) for o in PAIR_OPCODES) / pairs,
+                by_opcode={o: loop.count(o) / pairs for o in PAIR_OPCODES})
+
+
+def phase_nn(torch, dev, rec, card):
+    """(a), continued: the one-direction search (``nn_kernel``) against its
+    plain version at NN_SHAPES and in every launch plan, timed by plan; then
+    the large-cloud path's launches."""
+    from pointcloududa_torch.ops import chamfer_kernel as ck
+    from pointcloududa_torch.ops.losses import chamfer_loss as plain_chamfer
+    from pointcloududa_torch.utils import native
+    from pointcloududa_torch.utils.timing import graph_ms
+
+    rng = np.random.default_rng(9)
+    sms = native.sm_count(dev)
+    nn_err = 0.0
+    for b, n, m in NN_SHAPES:
+        for grid in (False, True):
+            x, y = _nn_clouds(torch, rng, dev, b, n, m, grid)
+            mins, idx = ck.nn_directional(x, y)
+            again = ck.nn_directional(x, y)
+            want_mins, want_idx = ck.nn_directional_plain(x, y)
+            nn_err = max(nn_err, _max_err(mins, want_mins))
+            _require(torch.equal(idx, want_idx), f"nn argmins differ at {(b, n, m)} (grid {grid})")
+            _require(torch.equal(mins, want_mins), f"nn minima not bit-equal at {(b, n, m)} (grid {grid})")
+            _require(torch.equal(again[0], mins) and torch.equal(again[1], idx), f"nn not bit-reproducible at {(b, n, m)}")
+        print(f"  chamfer_nn_forward {(b, n, m)}: {ck.nn_plan(b, n, m, sms)}; argmins equal, minima bit-equal, "
+              f"repeat bit-equal (uniform and grid clouds)")
+    # every plan the kernel takes, on a tie-heavy cloud and on duplicated points (ties at the lowest index)
+    x, y = _nn_clouds(torch, rng, dev, 2, 600, 530, grid=True)
+    want_mins, want_idx = ck.nn_directional_plain(x, y)
+    base = torch.tensor(rng.uniform(size=(2, 100, 3)), dtype=torch.float32, device=dev)
+    dup = torch.cat([base, base], dim=1).contiguous()
+    want_dup = (torch.arange(200, device=dev) % 100).to(torch.int32).expand(2, -1)
+    plans = 0
+    for lanes in (1, 2, 4, 8, 16, 32):
+        for size in range(1, native.MAX_CLUSTER + 1):
+            mins, idx = ck._launch_nn(x, y, ck.nn_plan(2, 600, 530, sms, lanes=lanes, cluster=size))
+            _, idx_dup = ck._launch_nn(dup, dup, ck.nn_plan(2, 200, 200, sms, lanes=lanes, cluster=size))
+            _require(torch.equal(idx, want_idx) and torch.equal(mins, want_mins) and torch.equal(idx_dup, want_dup),
+                     f"nn kernel differs from plain with lanes={lanes} cluster={size}")
+            plans += 1
+    before = ck.nn_directional.launches
+    try:
+        ck._launch_nn(x, y, ck.nn_plan(2, 600, 530, sms)._replace(cluster=9))
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError("a cluster of 9 must be refused")
+    _require(ck.nn_directional.launches == before, "a refused launch was counted")
+    print(f"  chamfer_nn_forward: all {plans} plans (lanes 1..32 x clusters 1..8) equal the plain version "
+          f"on a grid cloud (2, 600, 530) and on duplicated points (lowest index); a cluster of 9 is refused")
+
+    r = rec["chamfer_nn_forward"]
+    r.update(max_abs_err=nn_err, library_ms=None, by_shape={})
+    cuobjdump = os.path.join(os.path.dirname(native._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", native.library_path()], capture_output=True, text=True,
+                          check=True).stdout if os.path.isfile(cuobjdump) else None
+    for b, n, m in NN_SHAPES[:NN_TIMED]:
+        x, y = _nn_clouds(torch, rng, dev, b, n, m, grid=False)
+        plan = ck.nn_plan(b, n, m, sms)
+        row = dict(
+            plan=plan._asdict(),
+            ms=graph_ms(lambda: ck.nn_directional(x, y)),
+            plain_ms=graph_ms(lambda: ck.nn_directional_plain(x, y)),
+            # both clouds in, the minima and argmins out; per pair the NN_PAIR_INSTRUCTIONS it needs with FMA
+            # (9 operations at the FMA peak, as before: 3 products, 2 sums, a sum, a product, a difference, a clamp)
+            **_bound(b * (n + m) * 12 + b * n * 8, b * n * m * 9, instructions=b * n * m * NN_PAIR_INSTRUCTIONS),
+            cdist_min_ms=graph_ms(lambda: torch.cdist(x, y).min(-1)),
+            fused_route_ms=graph_ms(lambda: ck._fused_forward_loss(x, y)),
+            large_route_ms=graph_ms(lambda: ck._large_forward_loss(x, y)),
+            by_cluster_ms={s: graph_ms(lambda: ck._launch_nn(x, y, ck.nn_plan(b, n, m, sms, lanes=plan.lanes, cluster=s)))
+                           for s in (1, 2, 4, 8)},
+            by_lanes_ms={l: graph_ms(lambda: ck._launch_nn(x, y, ck.nn_plan(b, n, m, sms, lanes=l, cluster=plan.cluster)))
+                         for l in (1, 2, 4, 8, 16, 32)},
+        )
+        if sass is not None:  # what the plan's instantiation issues a pair in its walk
+            row["sass"] = _walk_sass(sass, f"nn_kernelILi{plan.lanes}EE", 4 * ck.NN_QUERIES)
+            print(f"  nn_kernel<{plan.lanes}> in its SASS: {row['sass']['per_pair']:.3f} instructions "
+                  f"issued a pair in the walk, {row['sass']['own_per_pair']:.3f} of them the pair's own "
+                  f"({row['sass']['by_opcode']}); the bound counts the {NN_PAIR_INSTRUCTIONS} the function needs with FMA")
+        r["by_shape"][f"{b}x{n}x{m}"] = row
+        route = "fused" if ck.fused_route(n, m) else "large-cloud"
+        print(f"  chamfer_nn_forward {(b, n, m)}: kernel {row['ms']:.5f} ms ({plan}), plain {row['plain_ms']:.4f} ms, "
+              f"bound {row['bound_ms']:.5f} ms by {row['bound_by']} ({row['bound_note']}; at the FMA peak "
+              f"{row['fma_peak_ms']:.5f}), {row['bound_ms'] / row['ms']:.0%} of it; torch.cdist + min (two calls, "
+              f"never used by the port) {row['cdist_min_ms']:.4f} ms; the whole forward: fused route "
+              f"{row['fused_route_ms']:.4f} ms, large-cloud route {row['large_route_ms']:.4f} ms (the loss takes the "
+              f"{route} route), on {card}")
+        print(f"    by plan: clusters 1, 2, 4, 8 at {plan.lanes} lanes: "
+              + ", ".join(f"{t:.5f}" for t in row["by_cluster_ms"].values())
+              + f"; lanes 1..32 in clusters of {plan.cluster}: " + ", ".join(f"{t:.5f}" for t in row["by_lanes_ms"].values())
+              + " ms")
+    r.update({k: v for k, v in r["by_shape"][f"{NN_SHAPES[0][0]}x{NN_SHAPES[0][1]}x{NN_SHAPES[0][2]}"].items()},
+             shape=list(NN_SHAPES[0]))
+
+    # the large-cloud path: the loss and its gradient above 512 x 512 pairs, launches counted from 0
+    b, n, m = NN_SHAPES[0]
+    x, y = _nn_clouds(torch, rng, dev, b, n, m, grid=False)
+    xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+    _reset_launches()
+    loss = ck.chamfer_loss(xg, yg)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    loss = loss.detach()
+    want = {name: 0 for name in counts} | {"chamfer_nn_forward": 2, "chamfer_backward": 2}
+    _require(counts == want, f"launches of chamfer_loss(x, y).backward() at {(b, n, m)}: {counts}, want {want}")
+    _record_launches(rec, "chamfer_large", counts, {"chamfer_nn_forward", "chamfer_backward"})
+    ref = plain_chamfer(x, y)
+    _require(abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref)), f"large-cloud loss {float(loss)} vs {float(ref)}")
+    (_, j1), (_, j2) = ck.nn_directional_plain(x, y), ck.nn_directional_plain(y, x)
+    g = torch.tensor(1.0, device=dev)
+    err_grad = max(_max_err(xg.grad, ck.side_grad_plain(x, y, j1, j2, g)), _max_err(yg.grad, ck.side_grad_plain(y, x, j2, j1, g)))
+    _require(err_grad <= 1e-6, f"large-cloud gradients differ by {err_grad}")
+    print(f"  by_path.chamfer_large: chamfer_loss(x, y).backward() at {(b, n, m)}: launches {counts}; loss {float(loss):.7f} "
+          f"(plain {float(ref):.7f}), max|dgrad| {err_grad:.3g}")
 
 
 # every BatchNorm input of the generator at bs 16, by path: 224^2 for MS-CMRSeg,
@@ -558,7 +733,7 @@ def phase_bn(torch, dev, rec):
         # the top-level numbers of a row: the largest shape of all, the error over both paths
         for name in (fwd_name, bwd_name):
             by_path = rec[name]["by_path"]
-            rec[name].update(by_path["mmwhs" + suffix], max_abs_err=max(v["max_abs_err"] for v in by_path.values()))
+            rec[name].update(by_path["mmwhs" + suffix], max_abs_err=max(by_path[p + suffix]["max_abs_err"] for p in BN_SHAPES))
     # one CUDA kernel a call: traces over a forward and a backward call at every shape in both dtypes, until
     # one holds exactly the calls' kernels in order (at most 10; see _kernel_names)
     inputs = [((torch.randn(shape, generator=gen, device=dev) * 0.7 + 0.2).to(dtype),

@@ -7,11 +7,15 @@
 //     (both directions' argmins and the per-item means of sqrt(min + 1e-5)
 //     in one call; the TPU kernel holds the whole N x M matrix in VMEM)
 //   - _nn_tiled_kernel / _nn_directional_tiled -> nn_kernel
-//     (one direction's running (min, argmin) over column tiles)
+//     (one direction's running (min, argmin) over column tiles; the loss
+//     takes it twice for clouds of more than 512 x 512 pairs, as the TPU
+//     package does, and the fused kernel up to there)
 //   - _vjp_bwd (jnp: gathers + one-hot einsum / segment_sum scatter)
 //     -> side_grad_kernel
 //
-// What bounds them here: neither bytes nor FLOPs. A 300-point cloud is
+// What bounds the fused forward and the backward here: neither bytes nor
+// FLOPs (nn_kernel, for large clouds, is bound by issued instructions; see
+// its own note). A 300-point cloud is
 // 3.6 KB and the card does the 16 x 300 x 300 pairs of a batch in about a
 // microsecond if they are spread over its SMs; an empty kernel's launch alone
 // costs one, a cluster's launch and its two barriers about four. So the
@@ -20,8 +24,9 @@
 // block's 227 KB of shared memory) never exists: the partner cloud sits in
 // shared memory and only a running (min, argmin) stays in registers.
 //
-// fused_forward_kernel does in one launch what took two nn_kernel launches
-// and five PyTorch launches (+ eps, sqrt, mean, twice, and a sum):
+// fused_forward_kernel does in one launch what the large-cloud route does
+// in two nn_kernel launches and five PyTorch launches (+ eps, sqrt, mean,
+// twice, and a sum):
 //
 //  * A cluster of up to 8 blocks of 512 threads per item shares the item's
 //    N + M queries (x's points against y, then y's points against x) in
@@ -71,8 +76,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // query points per block
-constexpr int kTile = 256;     // partner points staged per shared-memory tile
 constexpr float kEps = 1e-5f;  // reference loss.py:68
 
 __device__ __forceinline__ float sq3(float a0, float a1, float a2) {
@@ -84,56 +87,209 @@ __device__ __forceinline__ float dot3(float a0, float a1, float a2, float b0, fl
   return __fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2));
 }
 
-// Fold the cnt partner points staged in cs (rows of 3) with squared norms ccs,
-// whose first has index t0, into the running (best, best_j) of the query
-// (a0, a1, a2) with squared norm aa.
-__device__ __forceinline__ void scan_tile(float a0, float a1, float a2, float aa, const float* cs,
-                                          const float* ccs, int cnt, int t0, float& best,
-                                          int& best_j) {
-  for (int k = 0; k < cnt; ++k) {
-    const float ac = dot3(a0, a1, a2, cs[3 * k], cs[3 * k + 1], cs[3 * k + 2]);
-    float p = __fsub_rn(__fadd_rn(aa, ccs[k]), __fmul_rn(2.0f, ac));
-    p = p < 0.f ? 0.f : p;
-    if (p < best) {
-      best = p;
-      best_j = t0 + k;
+// max(p, 0) in one instruction that keeps a NaN a NaN, as `p < 0 ? 0 : p`
+// does (a NaN distance is then never a minimum); fmaxf would turn it into 0.
+__device__ __forceinline__ float clamp0(float p) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(p));
+  return r;
+}
+
+// ---- nn_kernel: one direction's nearest neighbours, for large clouds ----
+//
+// Replaces (TPU) chamfer_pallas.py:_nn_tiled_kernel / _nn_directional_tiled:
+// for each point a[b, i], the minimum over j of the clamped squared distance
+// to c[b, j] and the lowest j that attains it.
+//
+// What bounds it: issued instructions. The function needs about 7 a pair
+// (3 FFMA on (-2c, |c|^2) with |a|^2 added once a query, a clamp, a compare
+// and two selects); this kernel issues 11 (3 FMUL and 2 FADD for a.(2c), one
+// FADD for |a|^2 + |c|^2, one for the difference, one max for the clamp, a
+// compare and two selects), because it keeps every product and sum rounded
+// on its own so that its minima are the plain version's bits (see Numerics
+// below). D = 3 leaves nothing for the tensor cores (an mma of depth 8 is
+// mostly padding, and TF32 would round the cross term and move argmins). At
+// (2, 2048, 2048) the 7 a pair are 59M instructions, ~1.8 us at the card's
+// issue rate; the bytes (~100 KB) are nothing. So the design is about
+// issuing those instructions from the whole card with nothing else in the
+// way:
+//
+//  * The whole card. A block holds 4 queries a thread x (256 / L) groups of
+//    L lanes. An item's partners are split over the L lanes of a query
+//    (lane s takes partners s, s + L, ... of its range) and over the S
+//    blocks of a thread-block cluster (rank r takes a contiguous range of
+//    `chunk` partners). The launch plan (ops/chamfer_kernel.py: nn_plan)
+//    grows L, then S, until the grid gives every SM a block,
+//    as long as a lane keeps 16 partners: (2, 2048, 2048) was 16 blocks of
+//    one query a thread on 132 SMs in the first design, and is now 256
+//    blocks (L = 32, S = 2). Lanes come first because a cluster costs more
+//    than a shuffle tree: at (2, 2048, 2048) and 32 lanes, clusters of 8
+//    ran 1.8x slower than clusters of 2 (chip_smoke.py phase (a) prints the
+//    time by plan).
+//  * Short, independent chains. Each staged partner feeds 4 independent
+//    running minima, so a thread has 4 compare-and-select chains in flight
+//    instead of one, and a lane walks only its share of the partners. L is
+//    a template parameter and the walk is unrolled by 4 with the four loads
+//    first, so the loop's own instructions are few (phase (a) prints what
+//    the SASS issues a pair) and the loads' latency hides behind the
+//    previous partners' arithmetic. 64 registers at most, so four blocks
+//    fit an SM.
+//  * One 16-byte shared load a partner. The partners are staged as float4
+//    (2 c, |c|^2): the norm once per partner at staging, and 2c so that
+//    a.(2c) = 2 (a.c) comes without the product by 2 (scaling by 2 is
+//    exact, so the bits are those of 2.0 * (a.c) unless a product is
+//    subnormal, i.e. coordinates below ~1e-19). A rank's range is staged in
+//    passes of up to 1024 partners (16 KB), each behind one barrier.
+//  * Merges without atomics. The L lanes of a query settle (distance,
+//    index) by an xor-shuffle tree, comparing lexicographically; lane 0
+//    leaves the result in its block's shared memory; after cluster.sync()
+//    rank r reads the S results of its share of the block's queries through
+//    distributed shared memory in rank order (increasing partner ranges, so
+//    strict '<' keeps the lowest index of a tie) and writes the output; a
+//    second cluster.sync() keeps every block's memory alive until then.
+//    Repeat runs give the same bits.
+//
+// Numerics as the plain version (ops/losses.py:batch_pairwise_dist): every
+// product and sum rounded on its own in its order, no FMA contraction; each
+// lane walks increasing indices with strict '<', so ties keep the lowest
+// index, as torch.min and jnp.argmin do.
+constexpr int kNNThreads = 256;
+constexpr int kNNQueries = 4;  // queries a thread (1 and 2 were never faster on the H100)
+constexpr int kNNTile = 1024;  // partners staged per pass
+constexpr int kNNUnroll = 4;   // partners a lane loads at once
+constexpr int kNNMinBlocks = 4;  // blocks an SM must hold: at most 64 registers a thread
+
+// Fold partner p2 = (2c, |c|^2) with index j into the Q running minima.
+template <int Q>
+__device__ __forceinline__ void nn_fold(const float (&a0)[Q], const float (&a1)[Q], const float (&a2)[Q],
+                                        const float (&aa)[Q], float4 p2, int j, float (&best)[Q],
+                                        int (&best_j)[Q]) {
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const float ac2 = dot3(a0[i], a1[i], a2[i], p2.x, p2.y, p2.z);
+    const float p = clamp0(__fsub_rn(__fadd_rn(aa[i], p2.w), ac2));
+    if (p < best[i]) {
+      best[i] = p;
+      best_j[i] = j;
     }
   }
 }
 
-// For each query a[b, i]: min over j of the clamped squared distance to
-// c[b, j], and the lowest j that attains it.
-__global__ void __launch_bounds__(kThreads)
+template <int L>
+__global__ void __launch_bounds__(kNNThreads, kNNMinBlocks)
     nn_kernel(const float* __restrict__ a, const float* __restrict__ c,
-              float* __restrict__ min_out, int* __restrict__ idx_out, int n, int m) {
-  __shared__ float cs[kTile * 3];
-  __shared__ float ccs[kTile];
+              float* __restrict__ min_out, int* __restrict__ idx_out, int n, int m, int chunk) {
+  constexpr int Q = kNNQueries;
+  constexpr int groups = kNNThreads / L;
+  constexpr int block_queries = groups * Q;
+  __shared__ float4 tile[kNNTile];
+  __shared__ float res_d[block_queries];
+  __shared__ int res_j[block_queries];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
+  const int q0 = static_cast<int>(blockIdx.x) / ranks * block_queries;  // this block's first query
+  const int sub = static_cast<int>(threadIdx.x) % L;  // this thread's lane of its queries
+  const int group = static_cast<int>(threadIdx.x) / L;
   const float* ab = a + static_cast<size_t>(b) * n * 3;
   const float* cb = c + static_cast<size_t>(b) * m * 3;
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-  if (i < n) {
-    a0 = ab[3 * i];
-    a1 = ab[3 * i + 1];
-    a2 = ab[3 * i + 2];
+
+  // query i of the group is the block's query i * groups + group
+  float a0[Q], a1[Q], a2[Q], aa[Q], best[Q];
+  int best_j[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const int q = q0 + i * groups + group;
+    a0[i] = a1[i] = a2[i] = 0.f;
+    if (q < n) {
+      a0[i] = ab[3 * q];
+      a1[i] = ab[3 * q + 1];
+      a2[i] = ab[3 * q + 2];
+    }
+    aa[i] = sq3(a0[i], a1[i], a2[i]);
+    best[i] = __int_as_float(0x7f800000);  // +inf
+    best_j[i] = 0;
   }
-  const float aa = sq3(a0, a1, a2);
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_j = 0;
-  for (int t0 = 0; t0 < m; t0 += kTile) {
-    const int cnt = min(kTile, m - t0);
-    __syncthreads();  // the previous tile is fully consumed
-    for (int k = threadIdx.x; k < cnt * 3; k += kThreads) cs[k] = cb[3 * t0 + k];
+  const bool active = q0 + group < n;  // the group's first query exists
+
+  const int p_begin = min(rank * chunk, m);
+  const int p_end = min(p_begin + chunk, m);
+  for (int t0 = p_begin; t0 < p_end; t0 += kNNTile) {
+    const int cnt = min(kNNTile, p_end - t0);
+    __syncthreads();  // the previous pass is fully consumed
+    for (int k = threadIdx.x; k < cnt; k += kNNThreads) {
+      const float c0 = cb[3 * (t0 + k)], c1 = cb[3 * (t0 + k) + 1], c2 = cb[3 * (t0 + k) + 2];
+      tile[k] = make_float4(__fmul_rn(2.f, c0), __fmul_rn(2.f, c1), __fmul_rn(2.f, c2), sq3(c0, c1, c2));
+    }
     __syncthreads();
-    for (int k = threadIdx.x; k < cnt; k += kThreads)
-      ccs[k] = sq3(cs[3 * k], cs[3 * k + 1], cs[3 * k + 2]);
-    __syncthreads();
-    scan_tile(a0, a1, a2, aa, cs, ccs, cnt, t0, best, best_j);
+    if (active) {  // increasing k, strict '<': the lowest of a tie stays
+      int k = sub;
+      for (; k + (kNNUnroll - 1) * L < cnt; k += kNNUnroll * L) {
+        float4 p2[kNNUnroll];
+#pragma unroll
+        for (int u = 0; u < kNNUnroll; ++u) p2[u] = tile[k + u * L];
+#pragma unroll
+        for (int u = 0; u < kNNUnroll; ++u) nn_fold<Q>(a0, a1, a2, aa, p2[u], t0 + k + u * L, best, best_j);
+      }
+      for (; k < cnt; k += L) nn_fold<Q>(a0, a1, a2, aa, tile[k], t0 + k, best, best_j);
+    }
   }
-  if (i < n) {
-    min_out[static_cast<size_t>(b) * n + i] = best;
-    idx_out[static_cast<size_t>(b) * n + i] = best_j;
+
+  // the lanes of a query agree: smallest distance, then lowest index
+#pragma unroll
+  for (int off = L >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const float other = __shfl_xor_sync(0xffffffffu, best[i], off);
+      const int other_j = __shfl_xor_sync(0xffffffffu, best_j[i], off);
+      if (other < best[i] || (other == best[i] && other_j < best_j[i])) {
+        best[i] = other;
+        best_j[i] = other_j;
+      }
+    }
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      res_d[i * groups + group] = best[i];
+      res_j[i * groups + group] = best_j[i];
+    }
+  }
+  cluster.sync();  // every rank's results are in its shared memory
+  for (int lq = rank * kNNThreads + static_cast<int>(threadIdx.x); lq < block_queries;
+       lq += ranks * kNNThreads) {
+    float d = __int_as_float(0x7f800000);
+    int j = 0;
+    for (int r = 0; r < ranks; ++r) {  // rank order: increasing partner ranges
+      const float od = cluster.map_shared_rank(res_d, r)[lq];
+      if (od < d) {
+        d = od;
+        j = cluster.map_shared_rank(res_j, r)[lq];
+      }
+    }
+    const int q = q0 + lq;
+    if (q < n) {
+      min_out[static_cast<size_t>(b) * n + q] = d;
+      idx_out[static_cast<size_t>(b) * n + q] = j;
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its results
+}
+
+using NNKernel = void (*)(const float*, const float*, float*, int*, int, int, int);
+
+// nullptr for lanes other than a power of two in 1..32.
+NNKernel nn_kernel_for(int lanes) {
+  switch (lanes) {
+    case 1: return nn_kernel<1>;
+    case 2: return nn_kernel<2>;
+    case 4: return nn_kernel<4>;
+    case 8: return nn_kernel<8>;
+    case 16: return nn_kernel<16>;
+    case 32: return nn_kernel<32>;
+    default: return nullptr;
   }
 }
 
@@ -437,10 +593,40 @@ cudaLaunchConfig_t fused_config(int batch, int cluster, cudaStream_t stream,
 extern "C" {
 
 // a (batch, n, 3), c (batch, m, 3) -> min_out (batch, n) f32, idx_out (batch, n) i32.
+// The launch plan (ops/chamfer_kernel.py:nn_plan): 4 queries a thread,
+// `lanes` (a power of two, 1..32) a query, clusters of `cluster`
+// blocks (1..8) that split an item's partners in ranges of `chunk`, `tiles`
+// clusters along an item's queries. A plan that does not cover every query
+// and partner, or that the kernel cannot take, is refused
+// (cudaErrorInvalidValue) and nothing is launched.
 int pcuda_chamfer_nn(const float* a, const float* c, float* min_out, int* idx_out, int batch,
-                     int n, int m, cudaStream_t stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, batch);
-  nn_kernel<<<grid, kThreads, 0, stream>>>(a, c, min_out, idx_out, n, m);
+                     int n, int m, int lanes, int cluster, int tiles, int chunk,
+                     cudaStream_t stream) {
+  const NNKernel kernel = nn_kernel_for(lanes);
+  if (kernel == nullptr || cluster < 1 || cluster > kMaxCluster || batch < 1 ||
+      batch > 65535 || n < 1 || m < 1 || tiles < 1 || chunk < 1 ||
+      static_cast<long long>(tiles) * (kNNThreads / lanes) * kNNQueries < n ||
+      static_cast<long long>(chunk) * cluster < m ||
+      static_cast<long long>(tiles) * cluster > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(tiles) * static_cast<unsigned>(cluster),
+                        static_cast<unsigned>(batch));
+  config.blockDim = dim3(kNNThreads);
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&config, kernel, a, c, min_out, idx_out, n, m, chunk);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch is reported once, not left pending
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,6 @@ version beside it.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import NamedTuple
 
@@ -115,11 +114,6 @@ def _check(x: torch.Tensor) -> None:
         raise ValueError(f"unsupported BN-statistics shape {tuple(x.shape)}")
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _device_index(device: torch.device) -> int:
     return torch.cuda.current_device() if device.index is None else device.index
 
@@ -159,7 +153,7 @@ def stats_forward(x: torch.Tensor):
         return stats_forward_plain(x)
     _check(x)
     outer, c, inner = _layout(x)
-    return _launch_forward(x, forward_plan(outer, c, inner, x.dtype, _aligned(x), _sms(_device_index(x.device))))
+    return _launch_forward(x, forward_plan(outer, c, inner, x.dtype, _aligned(x), native.sm_count(x.device)))
 
 
 def _launch_forward(x: torch.Tensor, plan: ForwardPlan):

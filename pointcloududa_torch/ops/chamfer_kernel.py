@@ -2,21 +2,28 @@
 ``csrc/chamfer.cu``, the counterpart of ``pointcloududa_tpu/ops/chamfer_pallas.py``.
 
 :func:`chamfer_loss` is a drop-in for ``ops.losses.chamfer_loss`` (without
-``sample_mask``). The forward is one launch (:func:`forward_fused`, the
-counterpart of ``_chamfer_fwd``): each point's nearest neighbour in the other
-cloud, both directions, and per item the mean of ``sqrt(min + 1e-5)`` in each
-direction; the loss is one reduction over those (B, 2) means. The backward
-needs only the argmin indices (:func:`side_grad`): ``d|x_i - y_a(i)| / dx_i``
-is the unit vector of the pair, and the scatter onto the partners is summed
-without atomics, by several threads per point. :func:`nn_directional` is the one-direction search on its
-own (the counterpart of ``_nn_directional_tiled``); the loss does not use it.
+``sample_mask``). Its forward (:func:`chamfer_forward`) takes the TPU
+package's two routes, by the same rule (:func:`fused_route`): clouds of at
+most 512 x 512 pairs go through one launch (:func:`forward_fused`, the
+counterpart of ``_chamfer_fwd``): each point's nearest neighbour in the
+other cloud, both directions, and per item the mean of ``sqrt(min +
+1e-5)`` in each direction; the loss is one reduction over those (B, 2)
+means. Larger clouds go through two one-direction searches
+(:func:`nn_directional`, the counterpart of ``_nn_directional_tiled``,
+shaped by :func:`nn_plan`) and the means in PyTorch, as JAX's
+``_chamfer_fwd_any`` does. The backward needs only the argmin indices
+(:func:`side_grad`), on either route: ``d|x_i - y_a(i)| / dx_i`` is the
+unit vector of the pair, and the scatter onto the partners is summed
+without atomics, by several threads per point.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises, and counts the
 launch in its ``launches`` attribute. Only a CPU tensor takes the plain PyTorch
-version beside it (``*_plain``).
+version beside it (``*_plain``), on the same routes.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +31,7 @@ from pointcloududa_torch.ops.losses import batch_pairwise_dist
 from pointcloududa_torch.utils import native
 
 EPS = 1e-5  # reference loss.py:68
+SMALL_LIMIT = 512 * 512  # n * m up to this -> the fused forward (chamfer_pallas.py:_SMALL_LIMIT)
 
 
 def _check_clouds(a: torch.Tensor, c: torch.Tensor) -> None:
@@ -50,18 +58,95 @@ def nn_directional_plain(a: torch.Tensor, c: torch.Tensor):
     return mins, idx.to(torch.int32)
 
 
+NN_THREADS = 256  # threads of a nearest-neighbour block (csrc/chamfer.cu: kNNThreads)
+NN_QUERIES = 4  # queries a thread (csrc/chamfer.cu: kNNQueries)
+NN_MIN_PARTNERS = 16  # the plan splits partners only while a lane keeps at least this many
+
+
+class NNPlan(NamedTuple):
+    """One nearest-neighbour launch: a grid of (tiles x cluster, B) blocks
+    of NN_THREADS threads. A block takes ``block_queries`` queries of an
+    item, NN_QUERIES a thread; its thread t is lane ``t % lanes`` of group
+    ``t // lanes``, whose query i is the block's query ``i * groups +
+    group``. Rank r of a cluster takes the item's partners ``ranges(m)[r]``,
+    and lane s of a group the partners s, s + lanes, ... of that range."""
+
+    lanes: int
+    cluster: int
+    tiles: int  # clusters along an item's queries
+    chunk: int  # partners a rank
+
+    @property
+    def groups(self) -> int:
+        return NN_THREADS // self.lanes
+
+    @property
+    def block_queries(self) -> int:
+        return self.groups * NN_QUERIES
+
+    def ranges(self, m: int) -> list[tuple[int, int]]:
+        return [(min(r * self.chunk, m), min((r + 1) * self.chunk, m)) for r in range(self.cluster)]
+
+
+def _ceil(u: int, v: int) -> int:
+    return -(-u // v)
+
+
+def nn_plan(b: int, n: int, m: int, sms: int = 132, lanes: int | None = None,
+            cluster: int | None = None) -> NNPlan:
+    """The nearest-neighbour launch for a (b, n, 3) cloud searched in a (b,
+    m, 3) one on ``sms`` SMs. Lanes first take what a block would leave idle
+    (while a block's queries are at least twice the item's); then the
+    partners are split over more lanes (up to 32) and then over a cluster of
+    up to 8 blocks, until the grid gives every SM a block or a lane would
+    keep fewer than NN_MIN_PARTNERS partners. Measured on the H100
+    (``chip_smoke.py`` phase (a) times the plans): at the same grid a
+    shuffle tree costs less than a cluster, and one or two blocks an SM
+    come within a few percent of the fastest plan. ``lanes`` and ``cluster``
+    force their part; the kernel refuses a plan it cannot take. The
+    constants were fitted to synthetic clouds of 2048 and 8192 points: no
+    training or evaluation cloud is above 512 x 512 pairs."""
+    lane, size = lanes or 1, cluster or 1
+
+    def partners(lane, size):  # a lane's partners
+        return _ceil(_ceil(m, size), lane)
+
+    def blocks(lane, size):
+        return b * _ceil(n, NN_THREADS // lane * NN_QUERIES) * size
+
+    def more_lanes(lane, size):
+        return lanes is None and lane < 32 and partners(2 * lane, size) >= NN_MIN_PARTNERS
+
+    while more_lanes(lane, size) and NN_THREADS // lane * NN_QUERIES >= 2 * n:
+        lane *= 2
+    while blocks(lane, size) < sms:
+        if more_lanes(lane, size):
+            lane *= 2
+        elif cluster is None and size < native.MAX_CLUSTER and partners(lane, 2 * size) >= NN_MIN_PARTNERS:
+            size *= 2
+        else:
+            break
+    return NNPlan(lane, size, _ceil(n, NN_THREADS // lane * NN_QUERIES), _ceil(m, size))
+
+
 def nn_directional(a: torch.Tensor, c: torch.Tensor):
     """Nearest neighbour of every point of ``a`` in ``c``; see
     :func:`nn_directional_plain`."""
     if a.device.type == "cpu":
         return nn_directional_plain(a, c)
     _check_clouds(a, c)
+    return _launch_nn(a, c, nn_plan(a.shape[0], a.shape[1], c.shape[1], native.sm_count(a.device)))
+
+
+def _launch_nn(a: torch.Tensor, c: torch.Tensor, plan: NNPlan):
+    """One nearest-neighbour launch of checked clouds as ``plan`` shapes it."""
     b, n, _ = a.shape
     mins = torch.empty((b, n), dtype=torch.float32, device=a.device)
     idx = torch.empty((b, n), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         status = native.load().pcuda_chamfer_nn(
-            a.data_ptr(), c.data_ptr(), mins.data_ptr(), idx.data_ptr(), b, n, c.shape[1], _stream(a)
+            a.data_ptr(), c.data_ptr(), mins.data_ptr(), idx.data_ptr(), b, n, c.shape[1],
+            plan.lanes, plan.cluster, plan.tiles, plan.chunk, _stream(a),
         )
     native.check(status, "pcuda_chamfer_nn")
     nn_directional.launches += 1
@@ -149,7 +234,7 @@ def backward_lanes(b: int, n: int, device: torch.device) -> int:
     16. Measured, not derived: the launch's time falls with every doubling up
     to there and stays from there on (``chip_smoke.py`` phase (a) prints the
     time with 1 to 32 threads a point beside this choice)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = native.sm_count(device)
     lanes = 1
     while lanes < 32 and b * n * lanes < 2 * sms * GRAD_THREADS:
         lanes *= 2
@@ -192,12 +277,32 @@ def side_grad(a, c, idx_ac, idx_ca, g):
 side_grad.launches = 0
 
 
-def chamfer_forward(x: torch.Tensor, y: torch.Tensor):
-    """(loss, idx1, idx2): the loss and both directions' argmins."""
-    x = x.to(torch.float32).contiguous()
-    y = y.to(torch.float32).contiguous()
+def fused_route(n: int, m: int) -> bool:
+    """Whether clouds of n and m points take the fused forward (else the
+    two one-direction searches): the TPU package's rule
+    (``chamfer_pallas.py:_chamfer_fwd_any``)."""
+    return n * m <= SMALL_LIMIT
+
+
+def _fused_forward_loss(x: torch.Tensor, y: torch.Tensor):
     parts, idx1, idx2 = forward_fused(x, y)
     return parts.sum() / parts.shape[0], idx1, idx2
+
+
+def _large_forward_loss(x: torch.Tensor, y: torch.Tensor):
+    min1, idx1 = nn_directional(x, y)
+    min2, idx2 = nn_directional(y, x)
+    return torch.mean(torch.sqrt(min1 + EPS)) + torch.mean(torch.sqrt(min2 + EPS)), idx1, idx2
+
+
+def chamfer_forward(x: torch.Tensor, y: torch.Tensor):
+    """(loss, idx1, idx2): the loss and both directions' argmins, on the
+    route :func:`fused_route` picks."""
+    x = x.to(torch.float32).contiguous()
+    y = y.to(torch.float32).contiguous()
+    if fused_route(x.shape[1], y.shape[1]):
+        return _fused_forward_loss(x, y)
+    return _large_forward_loss(x, y)
 
 
 class _ChamferLoss(torch.autograd.Function):

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import glob
 import hashlib
 import os
@@ -39,7 +40,7 @@ _L = ctypes.c_longlong
 # C entry point -> argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     "pcuda_chamfer_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "pcuda_chamfer_nn": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "pcuda_chamfer_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "pcuda_chamfer_side_grad": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pcuda_bn_stats_forward": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "pcuda_bn_stats_forward_bf16": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -126,6 +127,17 @@ def check(status: int, name: str) -> None:
     if status != 0:
         msg = load().pcuda_error_string(status).decode()
         raise RuntimeError(f"{name}: CUDA error {status} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (the current device when it
+    has no index)."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def max_active_clusters(cluster: int, device: torch.device) -> int:

@@ -3,8 +3,10 @@
 Marked ``cuda``: without a CUDA device every test skips (the kernels have no
 CPU mode). On the card: ``python -m pytest tests/test_torch_port_cuda.py -q``.
 This file imports no JAX, so it runs where only PyTorch is installed.
-Tolerances as in ``chip_smoke.py``: argmins equal, Chamfer minima and
-gradients atol 1e-6 (the backward also bit-equal on a repeat, whatever its
+Tolerances as in ``chip_smoke.py``: argmins equal, the one-direction
+search's minima bit-equal (its own tests; atol 1e-6 where the older test
+checks them beside the loss), loss parts and gradients atol 1e-6 (the
+backward also bit-equal on a repeat, whatever its
 lane count), BN statistics 1e-5 (+1e-5 relative, f32 sums in another
 order; a bfloat16 input too), BN gradients 1e-6 relative (float32) and
 within 1 bfloat16 ulp (bfloat16); farthest-point sampling exact.
@@ -43,17 +45,74 @@ def test_chamfer_kernels_match_plain(dev, b, n, m):
     assert torch.equal(i1, j1) and torch.equal(i2, j2)
     torch.testing.assert_close(m1, p1, rtol=0, atol=1e-6)
     torch.testing.assert_close(m2, p2, rtol=0, atol=1e-6)
+    assert chamfer_kernel.nn_directional.launches - before[0] == 2
     xg, yg = x.clone().requires_grad_(), y.clone().requires_grad_()
+    before = (chamfer_kernel.nn_directional.launches, chamfer_kernel.side_grad.launches, chamfer_kernel.forward_fused.launches)
     loss = chamfer_kernel.chamfer_loss(xg, yg)
     loss.backward()
     torch.testing.assert_close(loss, chamfer_loss(x, y), rtol=1e-5, atol=0)
     g = torch.ones((), device=dev)
     torch.testing.assert_close(xg.grad, chamfer_kernel.side_grad_plain(x, y, j1, j2, g), rtol=0, atol=1e-6)
     torch.testing.assert_close(yg.grad, chamfer_kernel.side_grad_plain(y, x, j2, j1, g), rtol=0, atol=1e-6)
-    # the loss makes one fused forward launch, not two one-direction launches
-    assert chamfer_kernel.nn_directional.launches - before[0] == 2
+    # the loss takes the TPU package's route: one fused forward launch up to 512 x 512 pairs (2048 x 1500
+    # is above: two one-direction launches and no fused one), and the backward kernel twice either way
+    fused = n * m <= 512 * 512
+    assert chamfer_kernel.nn_directional.launches - before[0] == (0 if fused else 2)
     assert chamfer_kernel.side_grad.launches - before[1] == 2
-    assert chamfer_kernel.forward_fused.launches - before[2] == 1
+    assert chamfer_kernel.forward_fused.launches - before[2] == (1 if fused else 0)
+
+
+# the shapes chip_smoke.py phase (a) holds nn_kernel at (its NN_SHAPES)
+NN_SHAPES = [(2, 2048, 2048), (16, 2048, 2048), (1, 8192, 8192), (2, 600, 530), (16, 300, 300), (3, 257, 40), (1, 1, 5)]
+
+
+def _grid_clouds(dev, b, n, m, seed):
+    """Clouds snapped to a grid of 1/8: many distances tie exactly."""
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(np.round(rng.uniform(size=(b, k, 3)) * 8) / 8, dtype=torch.float32, device=dev) for k in (n, m))
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["uniform", "grid"])
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_nn_kernel_matches_plain(dev, b, n, m, grid):
+    """The one-direction search in its own plan: argmins equal, minima bit-equal
+    (the plain version's arithmetic, product by product), and a repeat run
+    gives the same bits."""
+    x, y = (_grid_clouds if grid else _clouds)(dev, b, n, m, seed=n + m)
+    before = chamfer_kernel.nn_directional.launches
+    mins, idx = chamfer_kernel.nn_directional(x, y)
+    assert chamfer_kernel.nn_directional.launches == before + 1
+    want_mins, want_idx = chamfer_kernel.nn_directional_plain(x, y)
+    assert torch.equal(idx, want_idx) and torch.equal(mins, want_mins)
+    again = chamfer_kernel.nn_directional(x, y)
+    assert torch.equal(again[0], mins) and torch.equal(again[1], idx)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_nn_kernel_in_every_plan(dev, lanes):
+    """Every plan the kernel takes (clusters of 1 to 8 here) gives the plain
+    version's bits on a tie-heavy cloud and the lowest index on duplicated
+    points; a plan that does not cover the partners, or a cluster of 9, is
+    refused and not counted."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x, y = _grid_clouds(dev, 2, 600, 530, seed=lanes)
+    want_mins, want_idx = chamfer_kernel.nn_directional_plain(x, y)
+    base, _ = _clouds(dev, 2, 100, 1, seed=5)
+    dup = torch.cat([base, base], dim=1).contiguous()
+    want_dup = (torch.arange(200, device=dev) % 100).to(torch.int32).expand(2, -1)
+    for cluster in range(1, 9):
+        plan = chamfer_kernel.nn_plan(2, 600, 530, sms, lanes=lanes, cluster=cluster)
+        mins, idx = chamfer_kernel._launch_nn(x, y, plan)
+        assert torch.equal(idx, want_idx) and torch.equal(mins, want_mins)
+        _, idx_dup = chamfer_kernel._launch_nn(dup, dup, chamfer_kernel.nn_plan(2, 200, 200, sms, lanes=lanes, cluster=cluster))
+        assert torch.equal(idx_dup, want_dup)
+    before = chamfer_kernel.nn_directional.launches
+    # the last plan has clusters of 8 (chunk 67: 66 x 8 < 530) and tiles = ceil(600 / block_queries)
+    for bad in (plan._replace(cluster=9), plan._replace(chunk=plan.chunk - 1), plan._replace(tiles=plan.tiles - 1)):
+        with pytest.raises(RuntimeError):
+            chamfer_kernel._launch_nn(x, y, bad)
+    assert chamfer_kernel.nn_directional.launches == before
+    assert torch.equal(chamfer_kernel.nn_directional(x, y)[1], want_idx)  # the error does not linger
 
 
 @pytest.mark.parametrize("b,n,m", [(16, 300, 300), (2, 2048, 2048), (3, 300, 77), (2, 77, 1500), (1, 1, 5), (5, 3, 2)])
