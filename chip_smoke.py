@@ -158,7 +158,24 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       generators and the untrained one: seconds per patient, the share of
       label voxels that differ from phase (j)'s float32 labels), and the
       bf16-trained generator evaluated in float32 and in bfloat16; no
-      kernel launched while evaluating.
+      kernel launched while evaluating;
+  (l) data parallelism: two ranks share the card over gloo (NCCL refuses
+      two ranks on one device), started with ``torch.multiprocessing``
+      (``parallel.launch.spawn``), each with 8 rows of the global batch of
+      16, against one process on the whole batch from the same weights
+      (cuDNN deterministic): MS-CMRSeg D1+D2+D4 at 224^2 in float32 and in
+      bfloat16, and the MM-WHS path (raw batch -> device preprocess with
+      light augmentation and FPS clouds -> softmax D2+D4 step, 256^2) in
+      float32, two steps each: every metric, the generator's, D1's and
+      D2's parameters and BatchNorm buffers after two steps and D4 after
+      one (the tolerances by ``DP_UPDATE``), the FPS clouds of each rank
+      bit-equal to the one process's rows, each rank's kernel launches a
+      step equal to the one process's (``by_path.data_parallel``), the
+      ranks' step time, peak memory and all-reduces a step beside the one
+      process's, one more step of each profiled; then
+      ``cli.train_mscmrseg.main -dist`` with the launcher's environment of a
+      world of one (one NCCL rank) against the same command without
+      ``-dist``: logged records and checkpoints equal bit for bit.
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
@@ -176,7 +193,7 @@ TF32 is switched off for convolutions and matrix products, so float32 means
 float32 on both sides of every comparison. Phases (c) to (j) run in float32,
 named explicitly (``compute_dtype="float32"``, ``-dtype float32``: the
 training CLIs default to bfloat16), so their numbers compare with earlier
-runs of this script; phase (k) runs bfloat16.
+runs of this script; phase (k) runs bfloat16, phase (l) both.
 """
 
 from __future__ import annotations
@@ -2267,6 +2284,297 @@ def phase_bf16(torch, dev, rec, card, heavy_pre_ms, keep, tmp, f32_labels):
     print(f"  launches on the bf16 evaluation path: {counts}")
 
 
+# phase (l): data parallelism on the one card. Two ranks share it over gloo
+# (NCCL refuses two ranks on one device: "Duplicate GPU detected"); NCCL
+# runs one rank through the command line. The two ranks and one process
+# take the same global batches from the same weights, with cuDNN
+# deterministic and TF32 off, He init (at the default init the generator's
+# cloud collapses to a point and D4 normalises f32 noise; PERF.md, D4
+# witness), SGD on the generator (Adam's first updates are lr * sign(g),
+# which turns f32 noise in a gradient near 0 into +-lr: elementwise
+# comparisons would hold noise) and no dropout in D4 (the witness below
+# reorders the rows, and a mask follows its row; the global batch's masks
+# are held on the CPU, tests/test_torch_port_parallel.py).
+DP_WORLD, DP_STEPS = 2, 2
+# Tolerances, two ranks against one process (float32; the global batch's
+# sums in another order, as the kernels-vs-plain checks of this script
+# meet): every metric of both steps at STEP_RTOL / STEP_ATOL, the
+# accuracies within two flipped decisions of 16; the generator's, D1's and
+# D2's parameters after both steps: each update (new - initial) within
+# DP_UPDATE of its tensor's largest update plus two ulps (the SGD rule of
+# tests/test_torch_port_step.py), BatchNorm running statistics rtol 1e-4,
+# atol 1e-5. D4's updates are ill-conditioned in f32 (ROADMAP Queue 3: on a
+# permuted batch, JAX against itself moves D4's gradients by up to 6%, and
+# a tensor whose update is small, such as a norm's weight before the
+# max-pool's near-ties, moves further): after the first step, D4 as a
+# whole, its parameters and its running statistics apart, ||two ranks - one
+# process|| <= DP_D4 ||one process - initial||. Beside each gap the
+# WITNESS's is printed: the one process on the same global batch with its
+# two halves swapped (the same function, its sums in another order).
+# bfloat16: every metric at phase (k)'s bf16 tolerance, no parameter check.
+DP_UPDATE, DP_D4 = 5e-2, 0.1
+# the nets held, after the step that reads them
+DP_HELD = {"gen": DP_STEPS, "d1": DP_STEPS, "d2": DP_STEPS, "d4": 1}
+
+
+def _dp_config(workload: str, dtype: str):
+    from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
+
+    common = dict(chamfer_impl="pallas", bn_stats_impl="pallas", compute_dtype=dtype, heinit=True, sgd=True, bs=16)
+    if workload == "mscmrseg":
+        return mscmrseg_default(d1=True, d2=True, d4=True, **common)
+    return mmwhs_default(softmax=True, d2=True, d4=True, aug="light", **common)
+
+
+def _dp_run(mesh, workload: str, dtype: str, swap: bool = False) -> dict:
+    """``DP_STEPS`` train steps (MM-WHS: device preprocess + step) of one
+    configuration at full width on the global synthetic batches of seeds
+    0, 1, ...: on ``mesh``'s rows, or on the whole batch without a mesh
+    (``swap``: with its halves swapped before the step). Returns the
+    metrics, the kernels' launches and the all-reduces of each step, each
+    step's ms, the peak memory, the states of ``DP_HELD``, and (MM-WHS) each
+    call's clouds, and a profile of one more step."""
+    import torch
+
+    from pointcloududa_torch.data.synthetic import synthetic_batch, synthetic_raw_batch
+    from pointcloududa_torch.parallel import collectives, replicate, shard_batch
+    from pointcloududa_torch.train.loop import make_device_preprocess
+    from pointcloududa_torch.train.state import create_train_state
+    from pointcloududa_torch.train.step import make_train_step
+    from pointcloududa_torch.utils.timing import event_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda", 0) if mesh is None else mesh.device
+    cfg = _dp_config(workload, dtype)
+    state = replicate(create_train_state(cfg, seed=0, device=dev), mesh)
+    state.models[3].dropout.p = 0.0
+    step = make_train_step(cfg, state.models, state.optimizers, mesh=mesh)
+    pre = make_device_preprocess(cfg, train=True, device_augment=True, device=dev, mesh=mesh) if workload == "mmwhs" else None
+    gen, host = torch.Generator(device=dev).manual_seed(7), torch.Generator().manual_seed(9)
+    make = synthetic_raw_batch if pre is not None else synthetic_batch
+    order = torch.cat([torch.arange(cfg.bs // 2, cfg.bs), torch.arange(cfg.bs // 2)]).to(dev)
+
+    def states(names):
+        return {f"{n}.{k}": v.detach().float().cpu().numpy().copy() for n, m in zip(("gen", "d1", "d2", "d4"), state.models)
+                if n in names and m is not None for k, v in m.state_dict().items()}
+
+    out = dict(metrics=[], launches=[], all_reduces=[], ms=[], clouds=[], init=states(DP_HELD), held={})
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(DP_STEPS):
+        raw = make(cfg, cfg.bs, seed=i)
+        batch = shard_batch(raw, mesh) if mesh is not None else {k: torch.as_tensor(v, device=dev) for k, v in raw.items()}
+        torch.cuda.synchronize(dev)
+        _reset_launches()
+        collectives.reset_launches()
+
+        def one_step(batch=batch):
+            if pre is not None:
+                batch = pre(gen, batch, host_generator=host)
+            if swap:
+                batch = {k: v[order] for k, v in batch.items()}
+            return batch, step(state, batch)[1]
+
+        (batch, metrics), ms = event_ms(one_step)
+        if pre is not None:
+            out["clouds"].append({k: batch[k].cpu().numpy() for k in ("vert_s", "vert_t")})
+        out["launches"].append(_launch_counts())
+        out["all_reduces"].append(collectives.all_reduce.launches)
+        out["ms"].append(ms)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["held"].update(states({n for n, s in DP_HELD.items() if s == i + 1}))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not swap:  # one more step, after everything above is read
+        out["profile"] = _step_profile(torch, one_step)
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+DP_RUNS = (("mscmrseg", "float32"), ("mscmrseg", "bfloat16"), ("mmwhs", "float32"))
+
+
+def _dp_rank(mesh) -> dict:
+    """What each rank of phase (l) runs (a top-level function: the ranks
+    are spawned processes that import it)."""
+    return {run: _dp_run(mesh, *run) for run in DP_RUNS}
+
+
+def _dp_metrics(run, ranks, want, witness) -> str:
+    """Every metric of every step on every rank against one process; returns
+    the largest gaps as a share of the tolerance, the witness's beside."""
+    workload, dtype = run
+    worst = {"ranks": 0.0, "witness": 0.0}
+    for name, runs in (("ranks", [rk[run] for rk in ranks]), ("witness", [witness] if witness else [])):
+        for r, got in enumerate(runs):
+            for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+                _require(set(g) == set(w), f"{run} {name} {r} step {i}: metric keys")
+                for key, v in w.items():
+                    if dtype == "bfloat16":
+                        ok = _bf16_tol_ok(key, g[key], v)
+                    elif key.startswith("dis"):
+                        ok = abs(g[key] - v) <= 2.0 / 16
+                    else:
+                        ok = abs(g[key] - v) <= STEP_ATOL + STEP_RTOL * abs(v)
+                        worst[name] = max(worst[name], abs(g[key] - v) / (STEP_ATOL + STEP_RTOL * abs(v)))
+                    _require(ok or name == "witness", f"{run} rank {r} step {i} {key}: {g[key]} vs one process {v}")
+    if dtype == "bfloat16":
+        return "at phase (k)'s bf16 tolerance"
+    return (f"largest gap {worst['ranks']:.3f} of the step tolerance (the witness, one process on the swapped batch: "
+            f"{worst['witness']:.3f})")
+
+
+def _dp_states(init: dict, got: dict, want: dict, witness: dict) -> str:
+    """The parameter and buffer checks above, for the nets of ``DP_HELD``."""
+    worst = 0.0
+    d4 = {part: np.zeros(3) for part in ("parameters", "running statistics")}  # squared: update, ranks' gap, witness's gap
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            _require(np.array_equal(got[k], w), f"{k}: {got[k]} vs {w}")
+        elif k.startswith("d4."):
+            d4["running statistics" if "running" in k else "parameters"] += [
+                float(np.sum(np.square(x - y, dtype=np.float64))) for x, y in ((w, init[k]), (got[k], w), (witness[k], w))]
+        elif "running" in k:
+            _require(np.allclose(got[k], w, rtol=1e-4, atol=1e-5), f"{k}: max |diff| {np.abs(got[k] - w).max()}")
+        else:
+            old = init[k].astype(np.float64)
+            diff = np.abs(got[k] - w)
+            tol = DP_UPDATE * np.abs(w - old).max() + 2 * np.spacing(np.abs(init[k]))
+            _require(bool((diff <= tol).all()), f"update of {k} differs at {(diff > tol).sum()} of {diff.size} elements")
+            worst = max(worst, float((diff / tol).max()))
+    shares = []
+    for part, (u, d, d_w) in d4.items():
+        _require(np.sqrt(d) <= DP_D4 * np.sqrt(u), f"D4's {part}: |two ranks - one process| {np.sqrt(d):.3g} > {DP_D4} x "
+                 f"|update| {np.sqrt(u):.3g}")
+        shares.append(f"{part} {np.sqrt(d / u):.4f} (the witness {np.sqrt(d_w / u):.4f})")
+    return (f"the generator's, D1's and D2's updates after {DP_STEPS} steps at {worst:.3f} of their tolerance, running "
+            f"statistics within rtol 1e-4, atol 1e-5; D4 after 1 step within {', '.join(shares)} of its update's norm "
+            f"(allowed {DP_D4})")
+
+
+def phase_data_parallel(torch, dev, rec, card):
+    """(l) data parallelism on the card: two gloo ranks against one process,
+    MS-CMRSeg D1+D2+D4 (224^2, bs 16: 8 rows a rank) in float32 and bfloat16
+    and the MM-WHS path (raw batch -> device preprocess -> step, softmax
+    D2+D4, 256^2) in float32; then ``cli.train_mscmrseg.main -dist`` on one
+    NCCL rank against the same command without ``-dist``."""
+    from pointcloududa_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    one = _dp_rank(None)
+    witness = {run: _dp_run(None, *run, swap=True) for run in DP_RUNS if run[1] == "float32"}
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = launch.spawn(_dp_rank, [dev] * DP_WORLD, backend="gloo")
+    ranks_s = time.perf_counter() - t0
+    print(f"  one process and its witnesses: {one_s:.1f} s; {DP_WORLD} gloo ranks on the one card, spawned: {ranks_s:.1f} s "
+          "(host time)")
+    per_rank = [{} for _ in ranks]
+    for run in DP_RUNS:
+        workload, dtype = run
+        want = one[run]
+        cfg = _dp_config(workload, dtype)
+        checked = _dp_metrics(run, ranks, want, witness.get(run))
+        for r, got in enumerate(rk[run] for rk in ranks):
+            lo, hi = r * cfg.bs // DP_WORLD, (r + 1) * cfg.bs // DP_WORLD
+            for i, (g, w) in enumerate(zip(got["clouds"], want["clouds"])):
+                for k in g:
+                    _require(np.array_equal(g[k], w[k][lo:hi]), f"{run} rank {r} call {i}: {k} differs from one process's rows")
+            for i, counts in enumerate(got["launches"]):
+                _require(counts == want["launches"][i], f"{run} rank {r} step {i}: launches {counts} vs one process {want['launches'][i]}")
+                for name, n in counts.items():
+                    per_rank[r][name] = per_rank[r].get(name, 0) + n
+        if dtype == "float32":
+            held = ranks[0][run]["held"]
+            _require(all(np.array_equal(v, ranks[1][run]["held"][k]) for k, v in held.items()), f"{run}: the ranks hold different states")
+            checked += "; the ranks' states bit-equal to each other; " + _dp_states(want["init"], held, want["held"], witness[run]["held"])
+            if workload == "mmwhs":
+                checked += f"; the {2 * DP_STEPS} FPS clouds of each rank bit-equal to the one process's rows"
+        print(f"  {workload} {dtype}: every metric of {DP_STEPS} steps on both ranks against one process, {checked}")
+        step_ms = [statistics.median(rk[run]["ms"][1:]) for rk in ranks]
+        print(f"  {workload} {dtype} {'preprocess + ' if workload == 'mmwhs' else ''}step, bs 16 = {DP_WORLD} x 8 rows, "
+              f"{cfg.crop_size}^2: rank 0 {step_ms[0]:.2f} ms, rank 1 {step_ms[1]:.2f} ms (step {DP_STEPS}; all: "
+              f"{', '.join(f'{t:.2f}' for rk in ranks for t in rk[run]['ms'])}), peak memory "
+              f"{', '.join(f'{rk[run]['peak_gib']:.2f}' for rk in ranks)} GiB a rank, {ranks[0][run]['all_reduces'][-1]} "
+              f"all-reduces a step over gloo; one process in this call: {statistics.median(want['ms'][1:]):.2f} ms "
+              f"(all: {', '.join(f'{t:.2f}' for t in want['ms'])}), peak {want['peak_gib']:.2f} GiB; on {card}")
+        print(f"    one more step profiled on rank 0: {_profile_text(ranks[0][run]['profile'])}")
+        print(f"    and in one process: {_profile_text(want['profile'])}")
+    expected = {"bn_stats_forward", "bn_stats_backward", "bn_stats_forward_bf16", "bn_stats_backward_bf16", "chamfer_forward",
+                "chamfer_backward", "fps"}
+    for r, counts in enumerate(per_rank):
+        for name, n in counts.items():
+            _require(n > 0 or name not in expected, f"rank {r} launched {name} no time")
+    for name in per_rank[0]:
+        entry = rec[name].setdefault("by_path", {}).setdefault("data_parallel", {})
+        entry["launches"] = sum(c[name] for c in per_rank)
+        entry["per_step_by_rank"] = {f"{w}_{d}": [rk[(w, d)]["launches"][-1][name] for rk in ranks] for w, d in DP_RUNS}
+        rec[name]["launches"] = rec[name].get("launches", 0) + entry["launches"]
+    print("  launches a step on each rank, equal to one process's: "
+          + "; ".join(f"{w} {d}: {ranks[0][(w, d)]['launches'][-1]}" for w, d in DP_RUNS))
+    _dp_cli(torch, dev, rec, card)
+
+
+def _dp_cli(torch, dev, rec, card):
+    """(l, cont.) ``cli.train_mscmrseg.main -dist`` with the launcher's
+    environment of a world of one (NCCL, one rank: every collective runs, of
+    one term) against the same command without ``-dist``, cuDNN
+    deterministic: the logged records and every checkpointed tensor equal bit
+    for bit."""
+    from pointcloududa_torch.cli import train_mscmrseg
+    from pointcloududa_torch.parallel import collectives, launch
+    from pointcloududa_torch.train import checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="pcuda_smoke_dp_")
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(launch.free_port()), WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        _fabricate_mscmrseg(os.path.join(tmp, "data"), seed=7)
+        argv = ["-bs", str(RUN_BS), "-ns", str(2 * RUN_BS), "-e", "1", "-d1", "-d2", "-d4", "-dtype", "float32",
+                "-data_dir", os.path.join(tmp, "data")]
+        counts = {}
+        for tag, extra in (("dist", ["-dist"]), ("one", [])):
+            os.environ.update(env)
+            _reset_launches()
+            collectives.reset_launches()
+            t0 = time.perf_counter()
+            _quiet(train_mscmrseg.main, argv + extra + ["-workdir", os.path.join(tmp, tag, "w"), "-logdir", os.path.join(tmp, tag, "r")])
+            counts[tag] = (_launch_counts(), collectives.all_reduce.launches, time.perf_counter() - t0)
+            _require(not torch.distributed.is_initialized(), "the CLI left its process group")
+        _require(counts["dist"][0] == counts["one"][0], f"launches with -dist {counts['dist'][0]} vs without {counts['one'][0]}")
+        _require(counts["dist"][1] > 0 and counts["one"][1] == 0, f"all-reduces: -dist {counts['dist'][1]}, without {counts['one'][1]}")
+        expected = {k for k, v in counts["one"][0].items() if v}
+        _require({"bn_stats_forward", "chamfer_forward"} <= expected, f"the run launched {counts['one'][0]}")
+        _record_launches(rec, "data_parallel_nccl_cli", counts["dist"][0], expected)
+        got, want = _read_scalars(os.path.join(tmp, "dist", "r")), _read_scalars(os.path.join(tmp, "one", "r"))
+        _require(got == want and list(want) == [1], f"logged records differ: {got} vs {want}")
+        files = sorted(os.listdir(os.path.join(tmp, "one", "w")))
+        _require(files and sorted(os.listdir(os.path.join(tmp, "dist", "w"))) == files, "checkpoint files differ")
+        n = 0
+        for name in files:
+            a, b = (checkpoint.restore_pytree(os.path.join(tmp, tag, "w", name)) for tag in ("dist", "one"))
+            for key, v in b["state"]["net"]["model"].items():
+                _require(torch.equal(a["state"]["net"]["model"][key], v), f"{name}: {key} differs")
+                n += 1
+        print(f"  cli.train_mscmrseg.main -dist, one NCCL rank (WORLD_SIZE=1), 1 epoch of 2 steps at bs {RUN_BS}, heavy "
+              f"augmentation, D1+D2+D4: {len(want[1])} logged scalars and {n} tensors of {len(files)} checkpoints equal bit "
+              f"for bit to the run without -dist ({counts['dist'][1]} all-reduces over NCCL; {counts['dist'][2]:.1f} s "
+              f"against {counts['one'][2]:.1f} s host time); launches {counts['dist'][0]}, on {card}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2345,6 +2653,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_bf16(torch, dev, rec, smi, heavy_pre_step_ms[0], keep, tests, f32_labels)
         seconds["k"] = time.perf_counter() - t0
+        print("(l) data parallelism: two gloo ranks on the card against one process (MS-CMRSeg float32 and bfloat16, "
+              "the MM-WHS path), then cli.train_mscmrseg.main -dist on one NCCL rank")
+        t0 = time.perf_counter()
+        phase_data_parallel(torch, dev, rec, smi)
+        seconds["l"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(tests, ignore_errors=True)

@@ -4,16 +4,28 @@ package's ``cli/train_mmwhs.py``; same flags).
 Flag set mirrors reference ``src/train_mmwhs.py:815-872`` (~45 flags incl.
 softmax-CE, per-loss adversarial weights, d4aux, etpls/Tetpls, ext* model
 growth, per-discriminator momentum), plus the JAX package's extras
-(``-dtype`` defaults to ``bfloat16``, as there). What differs here, each said
-in the flag's help: ``-no_packed`` parses and changes nothing (the port has
-no packed layout); ``-ndev`` above 1 and ``-dist`` are not ported. Training runs on the current CUDA device with the
+(``-dtype`` defaults to ``bfloat16``, as there). What differs here, said in
+the flag's help: ``-no_packed`` parses and changes nothing (the port has no
+packed layout). Training runs on the current CUDA device with the
 hand-written kernels (Chamfer, BN statistics, farthest-point sampling); at
 the end, unless ``-skip_final_eval``, the best checkpoint is evaluated on the
 CT test volumes (``train_mmwhs.py:680-686``) on the same device.
 
+Data parallelism (``cli/common.py:run_ranks``): ``-ndev N`` starts N ranks,
+one a card (0: every visible card), and ``-dist`` makes this process one
+rank of a launcher's group (``torchrun ... -dist``). Every rank trains on its
+rows of the global batch of ``-bs`` and computes the one-process step over
+it. Rank 0 writes ``-workdir`` and ``-logdir``, rank i under their
+``.rank{i}``. With ``-resume``, rank i writes its snapshots to
+``.rank{i}/<name>`` beside the path, and every rank resumes from the path
+itself, rank 0's snapshot (the ranks hold one state, so a snapshot does not
+depend on how many ranks wrote it). The final evaluation runs on rank 0
+alone.
+
 Usage:
   python -m pointcloududa_torch.cli.train_mmwhs -bs 16 -ns 2000 -e 200 \
       -softmax -d2 -d4 -aug light -data_dir ./input
+  torchrun --nproc_per_node 4 -m pointcloududa_torch.cli.train_mmwhs -dist ...
 """
 
 from __future__ import annotations
@@ -21,7 +33,7 @@ from __future__ import annotations
 import argparse
 
 from pointcloududa_torch import config as _config
-from pointcloududa_torch.cli.common import restored_generator, resume_and_fit, warm_restart, with_kernels
+from pointcloududa_torch.cli.common import restored_generator, resume_and_fit, run_ranks, warm_restart, with_kernels
 from pointcloududa_torch.config import appendix
 
 
@@ -78,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-dtype", choices=["float32", "bfloat16"], default="bfloat16",
                    help="compute type of activations and convolutions (weights, gradients and optimiser state stay float32)")
     p.add_argument("-ndev", type=int, default=0,
-                   help="devices to train on (0 or 1: one device; more is not ported: ROADMAP Queue 1 item 12)")
+                   help="devices in the data mesh (0=all): N > 1 starts N ranks, one a card; with -dist, 0 or the world size")
     p.add_argument(
         "-no_vert_t_metric",
         help="skip the logged-only target-domain chamfer diagnostic (the "
@@ -106,7 +118,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-workers", type=int, default=4)
     p.add_argument(
         "-dist",
-        help="multi-process training; not ported (ROADMAP Queue 1 item 12)",
+        help="multi-process: join the process group a launcher (torchrun) describes in the environment "
+        "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK), one process a card; every rank decodes "
+        "only its own global-batch rows (parallel.trainer_row_shard)",
         action="store_true",
     )
     p.add_argument("-max_hours", type=float, default=24.0)
@@ -181,30 +195,30 @@ def config_from_args(args) -> "UDAConfig":
     )
 
 
-def check_ported(args) -> None:
-    """Refuse, before anything is built, what this package does not do yet."""
-    if args.ndev > 1 or args.dist:
-        raise NotImplementedError("-ndev above 1 and -dist (data-parallel training) are not ported: ROADMAP Queue 1 item 12")
-
-
 def main(argv=None, device=None):
     """Train. ``device=None`` is the current CUDA device (raising without
     one); the CPU tests pass ``device="cpu"``."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     cfg = with_kernels(config_from_args(args))
     print(appendix(cfg))
+    run_ranks(_train, cfg, args, device)
 
+
+def _train(mesh, cfg, args, device=None):
+    """One rank's run on ``mesh`` (``None``: the one process, on ``device``)."""
     from pointcloududa_torch.data.build import build_mmwhs_pipelines
+    from pointcloududa_torch.parallel import trainer_row_shard
     from pointcloududa_torch.train.loop import UDATrainer
 
-    train_iter, val_iters, device_augment = build_mmwhs_pipelines(cfg, workers=args.workers)
+    row_shard = None if mesh is None else trainer_row_shard(mesh, cfg.bs)
+    train_iter, val_iters, device_augment = build_mmwhs_pipelines(cfg, workers=args.workers, row_shard=row_shard)
     trainer = UDATrainer(
         cfg,
         train_iter,
         val_iters,
         workdir=args.workdir,
         logdir=args.logdir,
+        mesh=mesh,
         device_augment=device_augment,
         device=device,
     )
@@ -216,7 +230,7 @@ def main(argv=None, device=None):
     resume_and_fit(trainer, args)
 
     best = trainer.ckpt_gen.final_best_path
-    if not args.skip_final_eval and best:
+    if not args.skip_final_eval and best and (mesh is None or mesh.rank == 0):
         # evaluate the best checkpoint (train_mmwhs.py:680-686) in a fresh
         # generator: the trainer's own holds the last epoch's weights
         from pointcloududa_torch.eval.volume import evaluate_mmwhs

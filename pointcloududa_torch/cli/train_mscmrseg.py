@@ -3,19 +3,29 @@ package's ``cli/train_mscmrseg.py``; same flags).
 
 Flag set mirrors reference ``src/train_mscmrseg.py:675-697`` (including the
 store_false semantics of ``-aug``/``-offdecay``), plus the JAX package's
-extras (``-dtype``, ``bfloat16`` by default as there, ``-ndev``,
+extras (``-dtype``, ``bfloat16`` by default as there, ``-ndev``, ``-dist``,
 ``-workdir``, ``-logdir``, ``-host_aug``, ``-workers``). What differs here,
 each said in the flag's help: ``-no_packed`` parses and changes nothing;
-``-ndev`` above 1, ``-dist`` and ``-host_aug`` are not ported. Without
-``-aug`` the run augments with the heavy pipeline on the device, as the
-reference does (``-aug2``: the medium one; ``-aug``: no augmentation).
-Training runs on the current CUDA device with the hand-written kernels
-(Chamfer, BN statistics). PNG slices are read by ``utils/png.py``, without
-OpenCV.
+``-host_aug`` is not ported. Without ``-aug`` the run augments with the
+heavy pipeline on the device, as the reference does (``-aug2``: the medium
+one; ``-aug``: no augmentation). Training runs on the current CUDA device
+with the hand-written kernels (Chamfer, BN statistics). PNG slices are read
+by ``utils/png.py``, without OpenCV.
+
+Data parallelism (``cli/common.py:run_ranks``): ``-ndev N`` starts N ranks,
+one a card (0: every visible card), and ``-dist`` makes this process one
+rank of a launcher's group (``torchrun ... -dist``). Every rank trains on its
+rows of the global batch of ``-bs`` and computes the one-process step over
+it. Rank 0 writes ``-workdir`` and ``-logdir``, rank i under their
+``.rank{i}``. With ``-resume``, rank i writes its snapshots to
+``.rank{i}/<name>`` beside the path, and every rank resumes from the path
+itself, rank 0's snapshot (the ranks hold one state, so a snapshot does not
+depend on how many ranks wrote it).
 
 Usage (the reference's command):
   python -m pointcloududa_torch.cli.train_mscmrseg -bs 16 -ns 2000 -e 200 \
       -d1 -d2 -d4 -data_dir ./input_aug
+  torchrun --nproc_per_node 4 -m pointcloududa_torch.cli.train_mscmrseg -dist ...
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import argparse
 
 from pointcloududa_torch import config as _config
-from pointcloududa_torch.cli.common import resume_and_fit, warm_restart, with_kernels
+from pointcloududa_torch.cli.common import resume_and_fit, run_ranks, warm_restart, with_kernels
 from pointcloududa_torch.config import appendix
 
 
@@ -54,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-dtype", choices=["float32", "bfloat16"], default="bfloat16",
                    help="compute type of activations and convolutions (weights, gradients and optimiser state stay float32)")
     p.add_argument("-ndev", type=int, default=0,
-                   help="devices to train on (0 or 1: one device; more is not ported: ROADMAP Queue 1 item 12)")
+                   help="devices in the data mesh (0=all): N > 1 starts N ranks, one a card; with -dist, 0 or the world size")
     p.add_argument("-workdir", type=str, default="weights")
     p.add_argument("-logdir", type=str, default="runs")
     p.add_argument("-host_aug", action="store_true",
@@ -84,7 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-workers", type=int, default=4)
     p.add_argument(
         "-dist",
-        help="multi-process training; not ported (ROADMAP Queue 1 item 12)",
+        help="multi-process: join the process group a launcher (torchrun) describes in the environment "
+        "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK), one process a card; every rank decodes "
+        "only its own global-batch rows (parallel.trainer_row_shard)",
         action="store_true",
     )
     p.add_argument("-max_hours", type=float, default=24.0)
@@ -136,8 +148,6 @@ def config_from_args(args) -> "UDAConfig":
 
 def check_ported(args) -> None:
     """Refuse, before anything is built, what this package does not do yet."""
-    if args.ndev > 1 or args.dist:
-        raise NotImplementedError("-ndev above 1 and -dist (data-parallel training) are not ported: ROADMAP Queue 1 item 12")
     if args.host_aug:
         raise NotImplementedError(
             "-host_aug (ops/host_augment.py) is not ported: ROADMAP Queue 1 items 9 and 10; augment on the device"
@@ -151,17 +161,24 @@ def main(argv=None, device=None):
     check_ported(args)
     cfg = with_kernels(config_from_args(args))
     print(appendix(cfg))
+    run_ranks(_train, cfg, args, device)
 
+
+def _train(mesh, cfg, args, device=None):
+    """One rank's run on ``mesh`` (``None``: the one process, on ``device``)."""
     from pointcloududa_torch.data.build import build_mscmrseg_pipelines
+    from pointcloududa_torch.parallel import trainer_row_shard
     from pointcloududa_torch.train.loop import UDATrainer
 
-    train_iter, val_iters = build_mscmrseg_pipelines(cfg, workers=args.workers, device_augment=True)
+    row_shard = None if mesh is None else trainer_row_shard(mesh, cfg.bs)
+    train_iter, val_iters = build_mscmrseg_pipelines(cfg, workers=args.workers, device_augment=True, row_shard=row_shard)
     trainer = UDATrainer(
         cfg,
         train_iter,
         val_iters,
         workdir=args.workdir,
         logdir=args.logdir,
+        mesh=mesh,
         device_augment=True,
         device=device,
     )

@@ -26,15 +26,17 @@ from torch import nn
 
 from pointcloududa_torch.models.init import torch_linear_init
 from pointcloududa_torch.models.unet import Conv1d, Dropout, Linear, TwinBatchNorm, set_compute_dtype
+from pointcloududa_torch.parallel import collectives
 
 
 class Norm1d(TwinBatchNorm):
     """BatchNorm over (B, C) or (B, C, N) with the generator's numerics and
-    plain statistics; for a single sample, normalise over the points
-    (B, C, N) or the features (B, C) without running stats."""
+    plain statistics; for a single sample (of the global batch, under a data
+    mesh), normalise over the points (B, C, N) or the features (B, C)
+    without running stats."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.shape[0] > 1:
+        if collectives.global_batch_size(x.shape[0]) > 1:
             return super().forward(x)
         dim = 2 if x.dim() == 3 else 1
         mean = torch.mean(x, dim=dim, keepdim=True)

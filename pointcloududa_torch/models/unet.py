@@ -39,6 +39,7 @@ from torch import nn
 
 from pointcloududa_torch.models.init import conv_init, torch_linear_init
 from pointcloududa_torch.ops.bn_kernel import batch_stats
+from pointcloududa_torch.parallel import collectives
 
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU() default, used by the whole generator
 
@@ -124,7 +125,10 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - self.p
+        # under a data mesh: the global batch's mask, of which this rank keeps its rows
+        b = x.shape[0]
+        draw = torch.rand((collectives.global_batch_size(b),) + tuple(x.shape[1:]), generator=generator, device=x.device)
+        keep = collectives.own_rows(draw, b) < 1.0 - self.p
         scaled = x / weak_scalar(1.0 - self.p, x.dtype)
         return torch.where(keep, scaled, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -153,7 +157,7 @@ class TwinBatchNorm(nn.Module):
         if self.training:
             mean, var = batch_stats(x.contiguous(), use_kernel=self.bn_kernel)
             with torch.no_grad():
-                n = x.numel() // x.shape[1]
+                n = collectives.global_batch_size(x.numel() // x.shape[1])  # the global batch's count
                 self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * (var * (n / (n - 1))))
                 self.num_batches_tracked.add_(1)

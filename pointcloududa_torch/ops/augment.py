@@ -916,6 +916,17 @@ def sample_draws(generator: torch.Generator, cfg: AugmentConfig, b: int, device,
     return d
 
 
+# the draws of :func:`sample_draws` made once for the whole batch; every other
+# draw holds one row per sample
+_BATCH_DRAWS = ("order5", "perm12", "coin")
+
+
+def draw_rows(draws: Dict[str, Optional[torch.Tensor]], lo: int, hi: int) -> Dict[str, Optional[torch.Tensor]]:
+    """The draws of samples ``lo:hi`` of the batch ``draws`` were made for
+    (a data-parallel rank's rows of the global batch's draws)."""
+    return {k: v if v is None or k in _BATCH_DRAWS else v[lo:hi] for k, v in draws.items()}
+
+
 def _sample_host_draws(host: torch.Generator, cfg: AugmentConfig, b: int):
     hu = lambda *s: torch.rand(s, generator=host)  # noqa: E731
     if cfg.someof_n > 0:

@@ -27,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from pointcloududa_torch.parallel import collectives
 from pointcloududa_torch.utils import native
 
 THREADS = 256  # threads a block, both kernels (csrc/bn_stats.cu: kThreads)
@@ -245,8 +246,12 @@ def bn_stats(x: torch.Tensor):
 def batch_stats(x: torch.Tensor, use_kernel: bool = True):
     """flax-equivalent (mean, var) over every axis but dim 1, f32, with the
     fast variance clipped at 0. ``use_kernel=False`` is the plain reduction
-    (``bn_stats_impl="xla"``)."""
+    (``bn_stats_impl="xla"``). Under a data mesh the (mean, mean of squares)
+    pair is the global batch's: one all-reduce of the rank's pair, before the
+    variance is formed (``parallel/collectives.py``)."""
     mean, meansq = bn_stats(x) if use_kernel else stats_forward_plain(x)
+    if collectives.active():
+        mean, meansq = collectives.global_mean(torch.stack([mean, meansq])).unbind(0)
     return mean, torch.clamp_min(meansq - torch.square(mean), 0.0)
 
 

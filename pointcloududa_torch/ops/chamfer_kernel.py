@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from pointcloududa_torch.ops.losses import batch_pairwise_dist
+from pointcloududa_torch.parallel import collectives
 from pointcloududa_torch.utils import native
 
 EPS = 1e-5  # reference loss.py:68
@@ -327,8 +328,10 @@ class _ChamferLoss(torch.autograd.Function):
 
 
 def chamfer_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Symmetric Chamfer loss of (B, N, 3) and (B, M, 3) clouds."""
-    return _ChamferLoss.apply(x, y)
+    """Symmetric Chamfer loss of (B, N, 3) and (B, M, 3) clouds. The kernels
+    give the mean over this rank's rows; under a data mesh that is averaged
+    over the ranks, which hold as many rows each (``parallel/collectives.py``)."""
+    return collectives.global_mean(_ChamferLoss.apply(x, y))
 
 
 def reset_launches() -> None:

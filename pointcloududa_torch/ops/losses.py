@@ -12,7 +12,10 @@ Same formulas, epsilons and quirks, on NHWC tensors with the class axis last
 - ``dice_coef_multilabel`` keeps ``num_labels=4``.
 
 Every reduction takes an optional (B,) ``sample_mask`` that drops the padded
-entries of a tail batch.
+entries of a tail batch. Under a data mesh every reduction over the batch is
+the global batch's (``parallel/collectives.py``): sums are all-reduced before
+a ratio is formed, and a mean over the rank's rows is averaged over the
+ranks, which hold as many rows each.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from pointcloududa_torch.parallel import collectives
 
 _LOG_CLAMP = -100.0
 
@@ -38,10 +43,11 @@ def _expand_mask(sample_mask: torch.Tensor, ndim: int) -> torch.Tensor:
 def masked_mean(x: torch.Tensor, sample_mask: torch.Tensor | None) -> torch.Tensor:
     """Mean over all elements, counting only batch entries whose mask is 1."""
     if sample_mask is None:
-        return torch.mean(x)
+        return collectives.global_mean(torch.mean(x))
     x = x.to(torch.float32)
     w = torch.broadcast_to(_expand_mask(sample_mask, x.ndim), x.shape)
-    return torch.sum(x * w) / torch.sum(w)
+    num, den = collectives.global_sums(torch.sum(x * w), torch.sum(w))
+    return num / den
 
 
 def bce_from_probs(
@@ -52,9 +58,10 @@ def bce_from_probs(
     probs = probs.to(torch.float32)
     targets = targets.to(torch.float32)
     if sample_mask is None:
-        return F.binary_cross_entropy(probs, targets)
+        return collectives.global_mean(F.binary_cross_entropy(probs, targets))
     w = torch.broadcast_to(_expand_mask(sample_mask, probs.ndim), probs.shape)
-    return F.binary_cross_entropy(probs, targets, weight=w, reduction="sum") / torch.sum(w)
+    num, den = collectives.global_sums(F.binary_cross_entropy(probs, targets, weight=w, reduction="sum"), torch.sum(w))
+    return num / den
 
 
 def bce_with_logits(
@@ -110,8 +117,11 @@ def jaccard_loss(
         true = true * m
     axis = class_axis % probs.ndim
     reduce_dims = tuple(d for d in range(probs.ndim) if d != axis)
-    intersection = torch.sum(probs * true, dim=reduce_dims)
-    cardinality = torch.sum(probs + true, dim=reduce_dims)
+    # per-class sums over the global batch before the ratio (a mean of the
+    # ranks' Jaccards would be another loss)
+    intersection, cardinality = collectives.global_sums(
+        torch.sum(probs * true, dim=reduce_dims), torch.sum(probs + true, dim=reduce_dims)
+    )
     union = cardinality - intersection
     return 1.0 - torch.mean(intersection / (union + eps))
 
@@ -181,7 +191,8 @@ def dice_coef_multilabel(
     n_class = y_true.shape[-1]
     flat_t = y_true.reshape(-1, n_class)
     flat_p = y_pred.reshape(-1, n_class)
-    inter = torch.sum(flat_t * flat_p, dim=0)
-    denom = torch.sum(flat_t, dim=0) + torch.sum(flat_p, dim=0)
+    inter, denom = collectives.global_sums(
+        torch.sum(flat_t * flat_p, dim=0), torch.sum(flat_t, dim=0) + torch.sum(flat_p, dim=0)
+    )
     dice = (2.0 * inter + 1.0) / (denom + 1.0)
     return torch.mean(dice[1:num_labels])

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from pointcloududa_torch.ops import fps_kernel
+from pointcloududa_torch.parallel import collectives
 
 NUM_POINTS = 300
 
@@ -89,9 +90,12 @@ def masks_to_point_clouds_from_starts(
 def draw_starts(masks: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """A uniformly random candidate per mask, as the argmax of
     ``uniform + 2 * candidate`` (any index when a mask has no candidate: its
-    cloud is zeroed afterwards)."""
+    cloud is zeroed afterwards). Under a data mesh the uniforms are drawn for
+    the global batch and this rank keeps its rows."""
     cand = candidates(masks > 0)
-    score = torch.rand(cand.shape, generator=generator, device=cand.device) + 2.0 * cand.to(torch.float32)
+    b = cand.shape[0]
+    draw = torch.rand((collectives.global_batch_size(b),) + tuple(cand.shape[1:]), generator=generator, device=cand.device)
+    score = collectives.own_rows(draw, b) + 2.0 * cand.to(torch.float32)
     return torch.argmax(score, dim=1).to(torch.int32)
 
 

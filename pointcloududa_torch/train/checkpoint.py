@@ -60,6 +60,21 @@ def save_pytree(path: str, tree: Any) -> None:
     os.replace(tmp, path)
 
 
+def rank_dir(path: str, rank: int) -> str:
+    """The directory a data-parallel rank writes in place of ``path``: rank 0
+    owns ``path``, rank i writes under ``path/.rank{i}`` (as the JAX
+    package's training CLIs lay them out), so two ranks never write one
+    file."""
+    return path if rank == 0 else os.path.join(path, f".rank{rank}")
+
+
+def rank_file(path: str, rank: int) -> str:
+    """The file a data-parallel rank writes in place of ``path``: rank 0's is
+    ``path``, rank i's ``.rank{i}/<name>`` beside it."""
+    head, name = os.path.split(path)
+    return os.path.join(rank_dir(head, rank), name)
+
+
 def restore_pytree(path: str) -> Any:
     """Read a :func:`save_pytree` file; every tensor comes back on the CPU
     (``load_state_dict`` copies it to where the module lives)."""

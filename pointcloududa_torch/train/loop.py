@@ -38,6 +38,7 @@ from pointcloududa_torch.ops.pointcloud_device import (
     draw_starts,
     masks_to_point_clouds_from_starts,
 )
+from pointcloududa_torch.parallel import collectives, mesh_is_multiprocess, replicate
 from pointcloududa_torch.train import checkpoint as ckpt_lib
 from pointcloududa_torch.train.state import create_train_state, get_generator_lr, set_generator_lr
 from pointcloududa_torch.train.step import make_eval_step, make_train_step
@@ -46,7 +47,8 @@ from pointcloududa_torch.utils.logging import MetricWriter
 from pointcloududa_torch.utils.timer import trace_annotation
 
 
-def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, device=None, fps_impl: str = "auto"):
+def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, device=None, fps_impl: str = "auto",
+                           mesh=None):
     """Raw-batch -> model-batch transform on ``device`` (``None`` = the
     current CUDA device; raises without one).
 
@@ -74,6 +76,14 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
     ``fps_impl`` goes to ``masks_to_point_clouds_from_starts``: ``"auto"``
     launches the FPS kernel on the card; ``"plain"`` is what the checks on
     the card hold it against.
+
+    ``mesh``: a data mesh whose rank holds rows ``lo:hi`` of each global
+    batch. Every random draw (the augmentations', the FPS starts') is then
+    made for the global batch, in the one-process run's calls, shapes and
+    order, and the rank keeps its rows, so the generators stay in step on
+    every rank and each rank's rows are the one-process run's; MM-WHS's
+    min-max scaling takes the global batch's extremes. Replayed ``draws`` are
+    the rank's own rows.
     """
     device = resolve_device(device)
     aug_cfg = {"heavy": augment_lib.heavy(), "aug2": augment_lib.medium(), "light": augment_lib.light()}.get(cfg.aug)
@@ -110,10 +120,13 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
         if not use_aug:
             return img.to(torch.float32), mask
         if draws is None:
-            draws = augment_lib.sample_draws(generator, aug_cfg, img.shape[0], img.device, tuple(img.shape[1:]), host_generator)
+            b = img.shape[0]
+            draws = augment_lib.sample_draws(generator, aug_cfg, collectives.global_batch_size(b), img.device,
+                                             tuple(img.shape[1:]), host_generator)
+            draws = augment_lib.draw_rows(draws, *collectives.own_range(b))
         if is_png:
             return augment_lib.augment_from_draws(aug_cfg, img, mask, draws)
-        lo, hi = torch.min(img), torch.max(img)
+        lo, hi = collectives.global_min(torch.min(img)), collectives.global_max(torch.max(img))
         scaled = (img - lo) * 255.0 / (hi - lo + 1e-12)
         out, mask = augment_lib.augment_from_draws(aug_cfg, scaled, mask, draws)
         return lo + out * (hi - lo + 1e-12) / 255.0, mask
@@ -163,7 +176,7 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
             batch["sample_mask"] = raw["sample_mask"].to(torch.float32)
         return batch
 
-    return process_train if train else process_eval
+    return collectives.within(mesh, process_train if train else process_eval)
 
 
 def _fetch_means(history: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
@@ -188,8 +201,17 @@ class UDATrainer:
     {"val": fn, "val_lge": fn, "test_lge": fn} each returning a fresh
     iterator of raw eval batches. ``device=None`` is the current CUDA device
     (raising without one); ``place`` copies a raw host batch to the device
-    and defaults to a copy of every array. One device only: ``mesh`` must be
-    ``None``.
+    and defaults to a copy of every array.
+
+    ``mesh`` (``parallel.create_mesh``): data-parallel training. The trainer
+    runs on ``mesh.device`` and takes the one-process step over the global
+    batch, of which this rank's loaders decode its own rows (build them with
+    ``row_shard=parallel.trainer_row_shard(mesh, cfg.bs)``). The state is
+    replicated from rank 0 after it is built and after a restore, and every
+    rank validates over the global batch, so every rank takes the same
+    checkpoint, decay and early-stopping decisions. Rank 0 writes
+    ``workdir`` and ``logdir``; rank i writes under their ``.rank{i}``
+    (``checkpoint.rank_dir``).
     """
 
     def __init__(
@@ -204,16 +226,24 @@ class UDATrainer:
         place: Optional[Callable] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training (a device mesh) is not ported: ROADMAP Queue 1 item 12")
         self.cfg = cfg
         self.train_iter = train_iter
         self.val_iters = val_iters
-        self.mesh = None
-        self.device = resolve_device(device)
-        # tail batches are wrap-padded to the stream's full batch size with a
-        # sample_mask; see data.loader.BatchPadder
-        self._pad_multiple = 1
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        # tail batches are wrap-padded to a multiple of the mesh (and to the
+        # stream's full batch size) with a sample_mask; see data.loader.BatchPadder.
+        # On a multi-process mesh padding already happened at index level
+        # (loader.shard_index_batch wrap-pads the GLOBAL batch before slicing
+        # this rank's rows), so the host-side padder must stay a no-op
+        self._pad_multiple = mesh.world_size if mesh is not None else 1
+        if mesh is not None and mesh_is_multiprocess(mesh):
+            self._pad_multiple = 1
+            if getattr(train_iter, "_row_shard", True) is None:
+                raise ValueError("a multi-process mesh needs loaders that decode this rank's rows: build them with "
+                                 "row_shard=parallel.trainer_row_shard(mesh, cfg.bs)")
+        self._rank = mesh.rank if mesh is not None else 0
+        workdir, logdir = ckpt_lib.rank_dir(workdir, self._rank), ckpt_lib.rank_dir(logdir, self._rank)
         self.appendix = appendix(cfg)
         if cfg.debug_nans:
             # NaN guard: what the reference has always on (train_mscmrseg.py:703)
@@ -221,15 +251,16 @@ class UDATrainer:
 
         self.state = create_train_state(cfg, seed=cfg.seed, device=self.device)
         self.gen = self.state.models[0]
-        self.train_step = make_train_step(cfg, self.state.models, self.state.optimizers)
-        self.eval_step = make_eval_step(cfg, self.gen)
-        self.pre_train = make_device_preprocess(cfg, train=True, device_augment=device_augment, device=self.device)
-        self.pre_eval = make_device_preprocess(cfg, train=False, device_augment=False, device=self.device)
+        self.train_step = make_train_step(cfg, self.state.models, self.state.optimizers, mesh=mesh)
+        self.eval_step = make_eval_step(cfg, self.gen, mesh=mesh)
+        self.pre_train = make_device_preprocess(cfg, train=True, device_augment=device_augment, device=self.device, mesh=mesh)
+        self.pre_eval = make_device_preprocess(cfg, train=False, device_augment=False, device=self.device, mesh=mesh)
         self.place = place if place is not None else (lambda b: to_device(b, self.device))
         self._aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
         # the heavy and medium pipelines' orders and SomeOf members, drawn on
         # the host so that it never waits for the device to learn them
         self._aug_host_gen = torch.Generator().manual_seed(cfg.seed + 19)
+        self.replicate_state()
 
         self.writer = MetricWriter(logdir, comment=self.appendix)
         mk = lambda name, best: ckpt_lib.ModelCheckpointCallback(  # noqa: E731
@@ -250,6 +281,12 @@ class UDATrainer:
         self.early_stop = (
             ckpt_lib.EarlyStoppingCallback(cfg.patience, mode="max") if cfg.patience > 0 else None
         )
+
+    def replicate_state(self) -> None:
+        """Give every rank rank 0's train state and generators, raising if
+        any rank held another (``parallel.replicate``); nothing without a
+        mesh."""
+        self.state = replicate(self.state, self.mesh, (self._aug_gen, self._aug_host_gen))
 
     # ------------------------------------------------------------------ #
     def train_epoch(self) -> Dict[str, float]:
@@ -328,7 +365,8 @@ class UDATrainer:
 
         Goes beyond the reference's warm restart (model+optimizer only,
         ``train_mmwhs.py:537-583``): a resumed run continues the exact
-        data order and decay schedule.
+        data order and decay schedule. Under a mesh rank i writes its copy
+        under ``.rank{i}`` beside ``path`` (``checkpoint.rank_file``).
         """
         payload = {
             "epoch": int(epoch),
@@ -355,13 +393,17 @@ class UDATrainer:
             for key, sampler in (("src_sampler", self.train_iter._src_sampler), ("tgt_sampler", self.train_iter._tgt_sampler)):
                 st = sampler.state()
                 payload[key] = {"cursor": int(st["cursor"]), "order": torch.from_numpy(np.asarray(st["order"], np.int64))}
-        ckpt_lib.save_pytree(path, payload)
+        ckpt_lib.save_pytree(ckpt_lib.rank_file(path, self._rank), payload)
 
     def restore_full(self, path: str) -> int:
         """Restore a :meth:`save_full` snapshot; returns the next epoch. The
         generators' states restore only into generators of the same device
         type as those that wrote them: a snapshot of a run on the card
-        resumes on a card, one of a CPU run on the CPU."""
+        resumes on a card, one of a CPU run on the CPU. Under a mesh every
+        rank reads ``path`` itself, rank 0's snapshot, and the state is
+        replicated (and so checked) after the restore. The state is the same
+        on every rank and the samplers' cursors are the global batch's, so a
+        snapshot does not depend on the number of ranks that wrote it."""
         payload = ckpt_lib.restore_pytree(path)
         for name, module, opt in zip(self._NETS, self.state.models, self.state.optimizers):
             if module is not None:
@@ -382,6 +424,7 @@ class UDATrainer:
         if "src_sampler" in payload and hasattr(self.train_iter, "_src_sampler"):
             for key, sampler in (("src_sampler", self.train_iter._src_sampler), ("tgt_sampler", self.train_iter._tgt_sampler)):
                 sampler.restore({"cursor": payload[key]["cursor"], "order": payload[key]["order"].numpy()})
+        self.replicate_state()
         return int(payload["epoch"]) + 1
 
     def initial_validation(self) -> Dict[str, float]:

@@ -53,13 +53,6 @@ def check_config(cfg: UDAConfig) -> None:
         raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16' (got {cfg.compute_dtype!r})")
     if not cfg.torch_bn_stats:
         raise ValueError("the PyTorch port keeps torch's unbiased running variance (torch_bn_stats=True)")
-    if cfg.bn_stats_impl == "pallas" and cfg.num_devices > 1:
-        # the statistics kernel reduces one device's batch; a multi-device run
-        # would need SyncBatchNorm semantics over the global batch
-        raise ValueError(
-            "bn_stats_impl='pallas' is single-device only "
-            f"(num_devices={cfg.num_devices}); use the default 'xla' impl"
-        )
 
 
 def build_generator(cfg: UDAConfig, generator: Optional[torch.Generator] = None) -> SegmentationPointModel:

@@ -16,6 +16,12 @@ target (phases 3-4). Batches are NHWC (``img_s``, one-hot ``mask_s``,
 ``img_t``) with (B, 300, 3) clouds (``vert_s``, ``vert_t``) and an optional
 (B,) ``sample_mask``; numpy arrays or tensors. Metrics are 0-d tensors on the
 models' device, under the JAX step's keys.
+
+Under a data mesh (``mesh=``) a batch holds this rank's rows of the global
+batch, every batch reduction (BatchNorm statistics, losses, metrics) is the
+global batch's, and each optimiser steps on the gradients averaged over the
+ranks (``parallel/collectives.py`` derives why), so every rank takes the
+one-process step over the global batch.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from pointcloududa_torch.config import UDAConfig
 from pointcloududa_torch.ops import chamfer_kernel, losses
+from pointcloududa_torch.parallel import collectives
 from pointcloududa_torch.train.state import UDATrainState
 
 SOURCE_LABEL = 1.0  # reference train_mscmrseg.py:160-161
@@ -84,6 +91,7 @@ def discriminator_phase(forward, opt, src, tgt, sample_mask, k: int) -> Dict[str
     )
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    collectives.average_grads(p for group in opt.param_groups for p in group["params"])
     opt.step()
     return {
         f"dis{k}_acc1": _disc_accuracy(o_s, True, sample_mask),
@@ -92,10 +100,12 @@ def discriminator_phase(forward, opt, src, tgt, sample_mask, k: int) -> Dict[str
     }
 
 
-def make_train_step(cfg: UDAConfig, models, optimizers):
+def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
     """Build ``step(state, batch) -> (state, metrics)`` that trains ``models``
     = (gen, d1, d2, d4) (None where disabled) in place with ``optimizers``;
-    ``state`` supplies the step count and the dropout generator."""
+    ``state`` supplies the step count and the dropout generator. ``mesh``: the
+    data mesh whose global batch the step trains on (``None``: this
+    process's batch)."""
     gen, d1, d2, d4 = models
     gen_opt, d1_opt, d2_opt, d4_opt = optimizers
     chamfer = _chamfer(cfg)
@@ -156,6 +166,7 @@ def make_train_step(cfg: UDAConfig, models, optimizers):
             for p in gen_params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
         gen_opt.step()
 
         metrics.update(
@@ -180,14 +191,16 @@ def make_train_step(cfg: UDAConfig, models, optimizers):
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
-    return step
+    return collectives.within(mesh, step)
 
 
-def make_eval_step(cfg: UDAConfig, gen):
+def make_eval_step(cfg: UDAConfig, gen, mesh=None):
     """``eval_step(batch) -> {"loss", "dice", "vert_loss", "logits"}`` on a
     batch with NHWC ``img``, one-hot ``mask``, optional ``vert`` and
     ``sample_mask``: the reference's validation loss and mean foreground
-    Dice (``train_mscmrseg.py:53-99``), the generator in eval mode."""
+    Dice (``train_mscmrseg.py:53-99``), the generator in eval mode. Under
+    ``mesh`` the metrics are the global batch's and ``logits`` this rank's
+    rows."""
     chamfer = _chamfer(cfg)
     device = _device_of(gen)
 
@@ -197,8 +210,7 @@ def make_eval_step(cfg: UDAConfig, gen):
         if sm is not None:
             m = sm.to(torch.float32).reshape((-1,) + (1,) * (p.dim() - 1))
             p, t = p * m, t * m
-        inter = torch.sum(p * t)
-        denom = torch.sum(p) + torch.sum(t)
+        inter, denom = collectives.global_sums(torch.sum(p * t), torch.sum(p) + torch.sum(t))
         # medpy dc: 0 when both structures are empty
         return torch.where(denom > 0, 2.0 * inter / torch.clamp_min(denom, 1.0), torch.zeros_like(denom))
 
@@ -227,4 +239,4 @@ def make_eval_step(cfg: UDAConfig, gen):
         dices = torch.stack([binary_dice(pred_lbl, true_lbl, c, sm) for c in range(1, cfg.n_class)])
         return {"loss": loss, "dice": torch.sum(dices) / (cfg.n_class - 1), "vert_loss": vert_loss, "logits": o}
 
-    return eval_step
+    return collectives.within(mesh, eval_step)

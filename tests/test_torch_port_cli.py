@@ -1,9 +1,10 @@
 """The port's training CLIs (``pointcloududa_torch/cli``) against the JAX
 package's: every flag parses to the same ``UDAConfig`` (but for the packed
 layouts, which the port does not have; ``-dtype`` defaults to bfloat16 in
-both), what is not ported is refused before any training, and
-``main(argv, device="cpu")`` trains, resumes and warm-restarts on fabricated
-mini datasets, in float32 and in bfloat16.
+both), what is not ported is refused before any training, the data-parallel
+flags reach training, and ``main(argv, device="cpu")`` trains, resumes and
+warm-restarts on fabricated mini datasets, in float32 and in bfloat16, and
+trains on two gloo ranks as on one process.
 
 The CLI runs use the presets' late binding (``config.mmwhs_default`` is looked
 up when ``config_from_args`` runs) to train at 96^2 with ``fc_inch=1``; the
@@ -11,10 +12,13 @@ widths come from ``-nf 8``.
 """
 
 import dataclasses
+import glob
+import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -104,18 +108,46 @@ def no_training(monkeypatch):
 
 @pytest.mark.parametrize(
     "module,argv,item",
-    [
-        (train_mmwhs, ["-skip_final_eval", "-ndev", "4"], "item 12"),
-        (train_mmwhs, ["-skip_final_eval", "-dist"], "item 12"),
-        (train_mscmrseg, ["-aug", "-ndev", "2"], "item 12"),
-        (train_mscmrseg, ["-aug", "-dist"], "item 12"),
-        (train_mscmrseg, ["-aug", "-host_aug"], "items 9 and 10"),
-    ],
-    ids=["mmwhs-ndev", "mmwhs-dist", "mscmrseg-ndev", "mscmrseg-dist", "mscmrseg-host-aug"],
+    [(train_mscmrseg, ["-aug", "-host_aug"], "items 9 and 10")],
+    ids=["mscmrseg-host-aug"],
 )
 def test_flags_that_are_not_ported_fail_before_training(no_training, module, argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         module.main(argv, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "module,argv",
+    [
+        (train_mmwhs, ["-skip_final_eval", "-ndev", "4"]),
+        (train_mmwhs, ["-skip_final_eval", "-dist"]),
+        (train_mscmrseg, ["-aug", "-ndev", "2"]),
+        (train_mscmrseg, ["-aug", "-dist"]),
+    ],
+    ids=["mmwhs-ndev", "mmwhs-dist", "mscmrseg-ndev", "mscmrseg-dist"],
+)
+def test_data_parallel_flags_reach_training(no_training, monkeypatch, module, argv):
+    """``-ndev N`` gets as far as starting its N ranks (``launch.spawn``, which
+    ``no_training`` stops); ``-dist``, given a launcher's environment for a
+    world of one, joins the group over gloo and gets as far as building its
+    pipelines, and leaves the group when that fails."""
+    from pointcloududa_torch.parallel import launch
+
+    started = []
+
+    def spawn(fn, devices, args=(), backend=None):
+        started.append(len(devices))
+        raise _Trained("the run got as far as starting its ranks")
+
+    monkeypatch.setattr(launch, "spawn", spawn)
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(launch.free_port()))
+    for name, value in (("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(name, value)
+    with pytest.raises(_Trained):
+        module.main(argv, device="cpu")
+    assert started == ([] if "-dist" in argv else [int(argv[-1])])
+    assert not torch.distributed.is_initialized()
 
 
 def test_the_gate_lets_a_ported_run_through(no_training):
@@ -294,6 +326,49 @@ def test_mscmrseg_cli_trains_resumes_and_warm_restarts(tmp_path, capsys):
     assert "valid_lge_dice:" in pre and "test_lge_dice:" in pre
 
 
+def _records(logdir) -> list:
+    (path,) = glob.glob(os.path.join(str(logdir), "*", "metrics.jsonl"))
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "time"} for line in f]
+
+
+def test_mscmrseg_cli_trains_on_two_ranks_as_one_process_does(tmp_path, monkeypatch):
+    """``-ndev 2`` on the CPU (``device="cpu"``): two gloo ranks, each decoding
+    its two rows of the global batch of 4, at filters 4, ``n_block`` 2, 32^2,
+    D1 + D2 for 2 epochs of 2 steps, against the same command on one
+    process: the same records logged (rtol 1e-4; the accuracies within two
+    of their patch decisions), the same checkpoint files, rank 1's under
+    ``.rank1``, holding the same weights (rtol 1e-4, atol 1e-5: Adam over
+    four steps of sums in another order)."""
+    preset = port_config.mscmrseg_default
+    monkeypatch.setattr(port_config, "mscmrseg_default",
+                        lambda **kw: preset(**{**kw, "filters": 4, "n_block": 2, "crop_size": 32}))
+    # the logs are compared by their JSONL records: this process skips TensorBoard, whose import takes seconds
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    root = make_mscmrseg_dataset(tmp_path / "d", size=32, n=4)
+    argv = ["-bs", "4", "-ns", "8", "-e", "2", "-d1", "-d2", "-aug", "-dtype", "float32", "-data_dir", root, "-workers", "0"]
+    for name, extra in (("one", []), ("two", ["-ndev", "2"])):
+        train_mscmrseg.main(argv + ["-workdir", str(tmp_path / name / "w"), "-logdir", str(tmp_path / name / "r")] + extra,
+                            device="cpu")
+    want = _records(tmp_path / "one" / "r")
+    assert len(want) == 3 * 2
+    for logdir in (tmp_path / "two" / "r", tmp_path / "two" / "r" / ".rank1"):
+        got = _records(logdir)
+        assert [sorted(g) for g in got] == [sorted(w) for w in want]
+        for g, w in zip(got, want):
+            for key, value in w.items():
+                atol = 2.0 / (4 * 2 * 2) if "_acc" in key else 0.0  # 4 patch logits a sample (32 -> 2 x 2)
+                np.testing.assert_allclose(g[key], value, rtol=1e-4, atol=atol, err_msg=f"{logdir}: {key}")
+    files = sorted(f for f in os.listdir(tmp_path / "one" / "w"))
+    assert files and sorted(f for f in os.listdir(tmp_path / "two" / "w") if f != ".rank1") == files
+    assert sorted(os.listdir(tmp_path / "two" / "w" / ".rank1")) == files
+    for wdir in (tmp_path / "two" / "w", tmp_path / "two" / "w" / ".rank1"):
+        for name in files:
+            got, ref = (torch.load(os.path.join(d, name), weights_only=True) for d in (wdir, tmp_path / "one" / "w"))
+            for key, value in ref["state"]["net"]["model"].items():
+                torch.testing.assert_close(got["state"]["net"]["model"][key], value, rtol=1e-4, atol=1e-5, msg=f"{name}: {key}")
+
+
 def test_main_needs_a_card_unless_told(tmp_path):
     """``main(argv)`` is ``device=None``: the card, and an error without one."""
     if torch.cuda.is_available():
@@ -312,6 +387,6 @@ def test_dispatcher_lists_the_two_train_commands():
     proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "evaluate-mmwhs", "-h"], cwd=ROOT, capture_output=True, text=True,
                           env=env, timeout=120)
     assert proc.returncode == 0 and "-weight_dir" in proc.stdout, proc.stderr
-    proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "train-mmwhs", "-ndev", "2", "-skip_final_eval"], cwd=ROOT,
+    proc = subprocess.run([sys.executable, "-m", "pointcloududa_torch", "train-mscmrseg", "-aug", "-host_aug"], cwd=ROOT,
                           capture_output=True, text=True, env=env, timeout=120)
-    assert proc.returncode != 0 and "ROADMAP Queue 1 item 12" in proc.stderr
+    assert proc.returncode != 0 and "ROADMAP Queue 1 items 9 and 10" in proc.stderr

@@ -322,6 +322,33 @@ def test_generator_with_kernel_bn_matches_plain_bn(dev):
         torch.backends.cudnn.deterministic = False
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bn_statistics_and_dx_over_two_gloo_ranks_on_one_card(dev, dtype):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device) and each runs the kernel-route BatchNorm on its 8 rows of a
+    global batch of 16 at the generator's first shape, through the kernels:
+    the statistics of the global batch (rtol 1e-5, atol 1e-5), and the rows
+    of the output and of dx (each rank's dx divided by the world size: see
+    ``tests/torch_port_ranks.py:bn_case``) equal to one process's within
+    1e-5 relative (float32) or one bfloat16 ulp (bfloat16), plus 1e-6 of
+    the largest; one forward launch for the statistics, one in the forward
+    and one backward launch on every rank."""
+    import torch_port_ranks as ranks
+    from pointcloududa_torch.parallel import launch
+
+    shape = (16, 32, 56, 56)
+    want = ranks.bn_case(None, "cuda:0", dtype, shape)
+    got = launch.spawn(ranks.bn_case, ["cuda:0"] * 2, ("cuda:0", dtype, shape), backend="gloo")
+    rel = 1e-5 if dtype == "float32" else 2.0 ** -7
+    for rank, g in enumerate(got):
+        assert g["launches"] == want["launches"] == (2, 1)
+        for k in ("mean", "var", "running_var"):
+            np.testing.assert_allclose(g[k], want[k], rtol=1e-5, atol=1e-5, err_msg=k)
+        for k in ("y", "dx"):
+            w = want[k][8 * rank:8 * rank + 8]
+            assert (np.abs(g[k] - w) <= rel * np.abs(w) + 1e-6 * np.abs(w).max()).all(), k
+
+
 @pytest.mark.parametrize("b,p,k,share", [(16, 3 * 64 * 64, 300, 0.3), (3, 5000, 64, 0.7), (1, 1, 4, 1.0), (2, 777, 50, 0.01)])
 def test_fps_kernel_equals_plain(dev, b, p, k, share):
     """Exact: kernel and plain version sum the three squares in one order

@@ -260,7 +260,7 @@ def test_generator_lr_roundtrip():
 @pytest.mark.parametrize(
     "bad",
     [dict(packed_level0=True), dict(packed_compute=True, packed_level0=True), dict(compute_dtype="float16"),
-     dict(bn_stats_impl="pallas", num_devices=2), dict(torch_bn_stats=False)],
+     dict(packed_level1=True), dict(torch_bn_stats=False)],
 )
 def test_rejected_configs(bad):
     with pytest.raises(ValueError):

@@ -34,6 +34,7 @@ from pointcloududa_tpu.data import build as ref_build
 from pointcloududa_tpu.train import loop as ref_loop
 from pointcloududa_torch.config import mmwhs_default
 from pointcloududa_torch.data import build
+from pointcloududa_torch.parallel import Mesh
 from pointcloududa_torch.train import loop
 from pointcloududa_torch.train.state import get_generator_lr
 from test_torch_port_data import make_mmwhs_dataset
@@ -279,8 +280,10 @@ def test_metrics_are_fetched_once_per_epoch(mmwhs_root, tmp_path, monkeypatch):
 def test_a_mesh_is_refused_and_debug_nans_switches_anomaly_detection_on(mmwhs_root, tmp_path):
     cfg = mmwhs_default(**{**SMALL, "data_dir": mmwhs_root, "d2": True})
     train_iter, val_iters, _ = build.build_mmwhs_pipelines(cfg, workers=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 12"):
-        loop.UDATrainer(cfg, train_iter, val_iters, mesh=object(), device="cpu")
+    # a multi-process mesh whose loaders decode whole global batches (no row_shard) would train on W of them
+    two_ranks = Mesh(2, 0, torch.device("cpu"), group=object())
+    with pytest.raises(ValueError, match="trainer_row_shard"):
+        loop.UDATrainer(cfg, train_iter, val_iters, mesh=two_ranks, device="cpu")
     if not torch.cuda.is_available():  # device=None is the card
         with pytest.raises(RuntimeError, match="device='cpu'"):
             loop.UDATrainer(cfg, train_iter, val_iters, workdir=str(tmp_path / "w"), logdir=str(tmp_path / "r"))
