@@ -176,6 +176,21 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       ``cli.train_mscmrseg.main -dist`` with the launcher's environment of a
       world of one (one NCCL rank) against the same command without
       ``-dist``: logged records and checkpoints equal bit for bit.
+  (m) the host augmentation route: one heavy host batch (16 x 256^2 x 3
+      uint8) made twice from one seed, equal bit for bit; the reference's
+      MS-CMRSeg command with ``-host_aug`` at the CLI's defaults (bfloat16,
+      heavy) on phase (i)'s fabricated dataset, and MM-WHS with host cloud
+      regeneration (``build_mmwhs_pipelines(cfg, host_cloud_regen=True)``,
+      ``UDATrainer(device_augment=False)``; light, softmax, D2+D4, float32)
+      on phase (g)'s, 2 epochs of 4 steps each at bs 16 through
+      ``_cli_training_run`` without its resume (the loader's numpy
+      generator is not in the snapshot): launches derived from steps,
+      cadence and validation batches, FPS 0 (``by_path.host_augment``,
+      ``by_path.host_cloud_regen``), scalars finite, checkpoints present,
+      every regenerated cloud of the epochs' first batches on its warped
+      mask's boundary voxels and a 50-pixel mask's cloud zero; ms per
+      iteration and waiting for batches beside the device route's (phases
+      (i) and (k)), ms per host cloud beside phase (e)'s FPS.
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
@@ -1194,13 +1209,13 @@ def phase_mmwhs(torch, dev, rec, card):
     return statistics.median(pre_ms[1:]), statistics.median(step_ms[1:])
 
 
-def _fabricate_mmwhs(root: str, seed: int) -> int:
+def _fabricate_mmwhs(root: str, seed: int, ct_test: bool = True) -> int:
     """An MM-WHS dataset in the directory contract of ``data/mmwhs.py``:
     float32 256 x 256 x 3 slices (noise around the structures, so that there
     is something to segment), uint8 masks of four filled ellipses, and (300,
     3) vertex files on the 0..255 scale for the streams that load them (the
     validation streams and ``ct_train``, which is also the third validation
-    set), and the four datalists."""
+    set), the four datalists and, with ``ct_test``, the CT test volumes."""
     from pointcloududa_torch.data.manifest import write_ids
     from pointcloududa_torch.data.synthetic import synthetic_blob_masks
 
@@ -1218,7 +1233,7 @@ def _fabricate_mmwhs(root: str, seed: int) -> int:
             if split != "mr_train":
                 np.save(os.path.join(base, "vertices", f"{_id}.npy"), (rng.uniform(size=(300, 3)) * 255.0).astype(np.float32))
         write_ids(os.path.join(root, f"{split}_list.csv"), ids)
-    return sum(RUN_SLICES.values()) + _fabricate_ct_test(root, seed)
+    return sum(RUN_SLICES.values()) + (_fabricate_ct_test(root, seed) if ct_test else 0)
 
 
 def _ellipsoids(shape, n_labels: int, rng) -> np.ndarray:
@@ -1388,9 +1403,13 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
     epoch must equal the uninterrupted one bit for bit, or within the step
     tolerance), ``final_eval`` (the flags that skip the entry point's final
     evaluation of the best checkpoint in every call but the first, or None
-    where it has none; the first call's is checked and timed) and ``keep``
+    where it has none; the first call's is checked and timed), ``keep``
     (a directory the renamed best generator checkpoint is copied to before
-    the run's directories go)."""
+    the run's directories go) and, optionally, ``resume=False``: no resumed
+    runs (the host augmentation route's numpy generator is not in the
+    snapshot, so a resumed run draws anew, as in the JAX package). The
+    second epoch's ms per iteration and per batch waited for go into
+    ``LOOP_MS[path]``."""
     from pointcloududa_torch.train import checkpoint, loop
 
     steps, val_batches = run_spec["steps"], run_spec["val_batches"]
@@ -1480,40 +1499,50 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
         _require(snap["epoch"] == 2 and set(snap["nets"]) == run_spec["nets"] and snap["step"] == 2 * steps,
                  "snapshot: unexpected content")
         print(f"  {len(scalars[2])} scalars per epoch, all finite; checkpoints {files} and the snapshot load")
-
-        # resume: 2 epochs, a second call that continues at epoch 3, and 3 epochs without a break elsewhere
-        torch.backends.cudnn.deterministic = True
-        run("c", 2)
-        text = run("c", 3)  # the same directories: resumes from the snapshot
-        _require("continuing at epoch 3" in text and "[3/3]" in text and "[1/3]" not in text, "the second call must resume at epoch 3")
-        run("b", 3)
-        got, ref = _read_scalars(os.path.join(tmp, "c", "runs"))[3], _read_scalars(os.path.join(tmp, "b", "runs"))[3]
-        _require(set(got) == set(ref), "the resumed and the uninterrupted epoch 3 log different scalars")
-        worst, equal = 0.0, True
-        for key, v in ref.items():
-            _require(abs(got[key] - v) <= STEP_ATOL + STEP_RTOL * abs(v), f"epoch 3 {key}: resumed {got[key]} vs uninterrupted {v}")
-            worst, equal = max(worst, abs(got[key] - v)), equal and got[key] == v
-        _require(equal or not run_spec["bit_equal"], f"the resumed epoch 3 is not bit-equal to the uninterrupted one (max |diff| {worst})")
-        print(f"  resumed epoch 3 vs an uninterrupted 3-epoch run: {len(ref)} scalars agree (max |diff| {worst:.3g}; "
-              f"{'bit-equal' if equal else 'not bit-equal'}; rtol {STEP_RTOL}, atol {STEP_ATOL}; cuDNN deterministic)")
+        if run_spec.get("resume", True):
+            # resume: 2 epochs, a second call that continues at epoch 3, and 3 epochs without a break elsewhere
+            torch.backends.cudnn.deterministic = True
+            run("c", 2)
+            text = run("c", 3)  # the same directories: resumes from the snapshot
+            _require("continuing at epoch 3" in text and "[3/3]" in text and "[1/3]" not in text, "the second call must resume at epoch 3")
+            run("b", 3)
+            got, ref = _read_scalars(os.path.join(tmp, "c", "runs"))[3], _read_scalars(os.path.join(tmp, "b", "runs"))[3]
+            _require(set(got) == set(ref), "the resumed and the uninterrupted epoch 3 log different scalars")
+            worst, equal = 0.0, True
+            for key, v in ref.items():
+                _require(abs(got[key] - v) <= STEP_ATOL + STEP_RTOL * abs(v), f"epoch 3 {key}: resumed {got[key]} vs uninterrupted {v}")
+                worst, equal = max(worst, abs(got[key] - v)), equal and got[key] == v
+            _require(equal or not run_spec["bit_equal"], f"the resumed epoch 3 is not bit-equal to the uninterrupted one (max |diff| {worst})")
+            print(f"  resumed epoch 3 vs an uninterrupted 3-epoch run: {len(ref)} scalars agree (max |diff| {worst:.3g}; "
+                  f"{'bit-equal' if equal else 'not bit-equal'}; rtol {STEP_RTOL}, atol {STEP_ATOL}; cuDNN deterministic)")
     finally:
         loop.UDATrainer.train_epoch, loop.UDATrainer.validate, loop.DevicePrefetcher = originals
         torch.backends.cudnn.deterministic = False
         shutil.rmtree(tmp, ignore_errors=True)
+    _loop_report(run_spec, steps, val_batches, train_s, valid_s, waits, peak_gib, pre_step_ms, card)
+    return final
 
+
+LOOP_MS: dict = {}  # path -> the second epoch's ms per iteration and per batch waited for (_cli_training_run)
+
+
+def _loop_report(run_spec, steps, val_batches, train_s, valid_s, waits, peak_gib, pre_step_ms, card):
+    """Print a run's epoch and iteration times and keep its second epoch's in ``LOOP_MS``."""
     # epochs in the order they ran: a 1-2 (cuDNN at its defaults), then deterministic: c 1-2, c 3, b 1-3
     per_it = [t / steps * 1e3 for t in train_s]
+    LOOP_MS[run_spec["path"]] = dict(iteration_ms=per_it[1], wait_ms=sum(waits[1]) / steps * 1e3)
     print(f"  first run: epoch 1 {train_s[0] + valid_s[0]:.2f} s (training {train_s[0]:.2f} + validation {valid_s[0]:.2f}), "
           f"epoch 2 {train_s[1] + valid_s[1]:.2f} s ({train_s[1]:.2f} + {valid_s[1]:.2f}); peak memory {peak_gib:.2f} GiB, on {card}")
+    resumed = ""
+    if len(per_it) == 8:
+        resumed = (f"; with cuDNN deterministic, the epochs that are not a call's first: median "
+                   f"{statistics.median(per_it[i] for i in (3, 6, 7)):.2f} ms (all six: {', '.join(f'{t:.1f}' for t in per_it[2:])})")
     print(f"  training iteration in the loop (decode, prefetch, preprocess, step, the epoch's metric fetch; {steps} an epoch): "
           f"{per_it[1]:.2f} ms in epoch 2 of the first run (epoch 1: {per_it[0]:.2f}), of which the training thread waited for "
           f"its batches {sum(waits[1]) / steps * 1e3:.2f} ms ({waits[1][0] * 1e3:.1f} ms for the epoch's first, which nothing hides, "
           f"{sum(waits[1][1:]) * 1e3:.1f} ms for the other {steps - 1}); {run_spec['beside']} preprocess + step: "
-          f"{pre_step_ms[0]:.2f} + {pre_step_ms[1]:.2f} = {sum(pre_step_ms):.2f} ms; with cuDNN deterministic, the epochs that are "
-          f"not a call's first: median {statistics.median(per_it[i] for i in (3, 6, 7)):.2f} ms (all six: "
-          f"{', '.join(f'{t:.1f}' for t in per_it[2:])}); the three validations of {val_batches} batches: median "
-          f"{statistics.median(valid_s) * 1e3:.1f} ms, on {card}")
-    return final
+          f"{pre_step_ms[0]:.2f} + {pre_step_ms[1]:.2f} = {sum(pre_step_ms):.2f} ms{resumed}; the validations of "
+          f"{val_batches} batches: median {statistics.median(valid_s) * 1e3:.1f} ms, on {card}")
 
 
 def phase_training_run(torch, dev, rec, card, pre_step_ms, keep):
@@ -2575,6 +2604,155 @@ def _dp_cli(torch, dev, rec, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase (m): the host augmentation route. The heavy host batch of the
+# determinism check, and the masks whose clouds are timed on the host
+HOST_BATCH = (16, HEAVY_RAW, HEAVY_RAW, 3)
+HOST_CLOUDS = 16
+
+
+def _bf16_step_counts(per_step: dict) -> dict:
+    """Phase (c)'s float32 launches a step, with the BatchNorm kernels in
+    their bfloat16 rows: what a step at the CLI's default dtype launches."""
+    out = dict(per_step)
+    for name in ("bn_stats_forward", "bn_stats_backward"):
+        out[f"{name}_bf16"], out[name] = out[name], 0
+    return out
+
+
+def _check_host_clouds(batches) -> int:
+    """Every regenerated cloud of ``batches`` lies on the boundary voxels of
+    its warped mask (the x3-stacked slab's, as ``data/pointcloud.py`` takes
+    them), and a mask of at most 50 foreground pixels gives a zero cloud;
+    returns the clouds checked."""
+    from pointcloududa_torch.data.pointcloud import boundary_voxels
+
+    n = 0
+    for batch in batches:
+        for m_key, v_key in (("mask_s", "vert_s"), ("mask_t", "vert_t")):
+            _require(batch[v_key].dtype == np.float32 and batch[v_key].shape[1:] == (300, 3), f"{v_key} {batch[v_key].shape}")
+            for mask, cloud in zip(batch[m_key], batch[v_key]):
+                binary = np.asarray(mask).reshape(mask.shape[:2]) > 0
+                if binary.sum() <= 50:
+                    _require(not cloud.any(), "a mask of at most 50 pixels gave a cloud")
+                else:
+                    on = {tuple(p) for p in boundary_voxels(np.stack([binary] * 3))}
+                    _require(all(tuple(p) in on for p in cloud.astype(np.int64)), f"a {v_key} point is off its mask's boundary")
+                n += 1
+    return n
+
+
+def phase_host_route(torch, dev, rec, card, per_step, heavy_pre_step_ms, mmwhs_pre_step_ms):
+    """(m) the host augmentation route at full width: ``cli.train_mscmrseg.main
+    -host_aug`` and MM-WHS's ``build_mmwhs_pipelines(cfg,
+    host_cloud_regen=True)`` with ``UDATrainer(device_augment=False)``."""
+    from pointcloududa_torch.cli import train_mmwhs, train_mscmrseg
+    from pointcloududa_torch.cli.common import resume_and_fit, with_kernels
+    from pointcloududa_torch.data.build import build_mmwhs_pipelines
+    from pointcloududa_torch.data.pointcloud import mask_to_point_cloud
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks
+    from pointcloududa_torch.ops.host_augment import make_host_augment
+    from pointcloududa_torch.train.loop import UDATrainer
+
+    # one heavy host batch made twice from one seed: equal bit for bit on this host
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 256, HOST_BATCH, dtype=np.uint8)
+    masks = synthetic_blob_masks(HOST_BATCH[0], HOST_BATCH[1], seed=3, n_class=4).astype(np.int64)
+    hook = make_host_augment("heavy")
+    t0 = time.perf_counter()
+    first = hook(imgs, masks, np.random.default_rng(1))
+    twin_s = time.perf_counter() - t0
+    second = hook(imgs, masks, np.random.default_rng(1))
+    _require(all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(first, second)),
+             "one heavy host batch made twice from one seed differs")
+    print(f"  one heavy host batch {HOST_BATCH} uint8, made twice from one seed: equal bit for bit; {twin_s:.3f} s on this "
+          f"machine's host")
+
+    # MS-CMRSeg: the reference's command with -host_aug, at the CLI's default dtype (bfloat16) and pipeline (heavy)
+    steps = -(-RUN_NS // RUN_BS)
+    val_batches = sum(-(-MS_SPLITS[s][2] // RUN_BS) for s in ("testA", "trainB_orig", "trainB"))
+    want = {name: n * 2 * steps for name, n in _bf16_step_counts(per_step).items()}
+    want["chamfer_forward"] += 2 * val_batches
+    keep = tempfile.mkdtemp(prefix="pcuda_smoke_host_")
+    try:
+        _cli_training_run(torch, dev, rec, card, dict(
+            path="host_augment", main=train_mscmrseg.main,
+            argv=["-host_aug", "-bs", str(RUN_BS), "-ns", str(RUN_NS), "-d1", "-d2", "-d4"],
+            fabricate=lambda root: _fabricate_mscmrseg(root, seed=7), want=want,
+            nets={"gen", "d1", "d2", "d4"}, files=("unet_model_checkpoint", "out_dis", "entropy_dis", "point_dis"),
+            steps=steps, val_batches=val_batches, bit_equal=False, beside="phase (h)'s heavy on the device (float32)",
+            final_eval=None, keep=keep, resume=False,
+        ), heavy_pre_step_ms)
+        host = LOOP_MS["host_augment"]
+        beside = [f"phase ({ph}) {LOOP_MS[path]['iteration_ms']:.2f} ms (waiting {LOOP_MS[path]['wait_ms']:.2f}, {what})"
+                  for ph, path, what in (("k", "mscmrseg_bf16_training_run", "bf16"), ("i", "mscmrseg_training_run", "float32"))
+                  if path in LOOP_MS]
+        print(f"  heavy MS-CMRSeg iteration, host route (bf16) {host['iteration_ms']:.2f} ms (waiting for batches "
+              f"{host['wait_ms']:.2f}); the device route: {'; '.join(beside) or 'not run'}; epoch 2 of each, on {card}")
+
+        # MM-WHS: host cloud regeneration through the Python API (the MM-WHS CLI has no flag for it)
+        seen = []
+
+        def host_regen_main(argv):
+            args = train_mmwhs.build_parser().parse_args(argv)
+            cfg = with_kernels(train_mmwhs.config_from_args(args))
+            print(train_mmwhs.appendix(cfg))
+            train_iter, val_iters, device_augment = build_mmwhs_pipelines(cfg, workers=args.workers, host_cloud_regen=True)
+            _require(device_augment is False, "host_cloud_regen=True must turn the device augmentation off")
+            epoch = train_iter.epoch
+
+            def watched():
+                for i, batch in enumerate(epoch()):
+                    if i == 0:
+                        seen.append(batch)
+                    yield batch
+
+            train_iter.epoch = watched
+            trainer = UDATrainer(cfg, train_iter, val_iters, workdir=args.workdir, logdir=args.logdir,
+                                 device_augment=device_augment)
+            resume_and_fit(trainer, args)
+
+        cadence_steps = -(-steps // RUN_VERT_T_EVERY)
+        mm_val = sum(-(-RUN_SLICES[s] // RUN_BS) for s in ("mr_val", "ct_val", "ct_train"))
+        _cli_training_run(torch, dev, rec, card, dict(
+            path="host_cloud_regen", main=host_regen_main,
+            argv=["-bs", str(RUN_BS), "-ns", str(RUN_NS), "-nf", "32", "-aug", "light", "-softmax", "-d2", "-d4",
+                  "-vert_t_every", str(RUN_VERT_T_EVERY), "-dtype", "float32"], final_eval=None, keep=keep, resume=False,
+            fabricate=lambda root: _fabricate_mmwhs(root, seed=5, ct_test=False),
+            want={
+                "fps": 0,
+                "chamfer_forward": 2 * (steps + cadence_steps + mm_val),
+                "chamfer_nn_forward": 0,
+                "chamfer_backward": 2 * steps,
+                "bn_stats_forward": 2 * steps * 32,
+                "bn_stats_backward": 2 * steps * 32,
+                "bn_stats_forward_bf16": 0,
+                "bn_stats_backward_bf16": 0,
+            },
+            nets={"gen", "d2", "d4"}, files=("unet_model_checkpoint", "entropy_dis", "point_dis"),
+            steps=steps, val_batches=mm_val, bit_equal=False, beside="phase (f)'s device route (light, FPS clouds)",
+        ), mmwhs_pre_step_ms)
+        _require(len(seen) == 2, f"{len(seen)} first batches seen, not one an epoch")
+        n = _check_host_clouds(seen)
+        print(f"  {n} regenerated clouds of the epochs' first batches lie on their warped masks' boundary voxels")
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+    # the host's time a cloud, and the zero cloud of a small mask
+    blobs = synthetic_blob_masks(HOST_CLOUDS, HEAVY_RAW, seed=5)
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    clouds = [mask_to_point_cloud(m) for m in blobs]
+    per_cloud = (time.perf_counter() - t0) / HOST_CLOUDS * 1e3
+    _require(all(c.shape == (300, 3) and c.any() for c in clouds), "a fabricated mask gave no cloud")
+    small = np.zeros((HEAVY_RAW, HEAVY_RAW), np.uint8)
+    small[100:105, 100:110] = 1  # 50 pixels: at the threshold
+    _require(not mask_to_point_cloud(small).any(), "a mask of 50 pixels gave a cloud")
+    fps_ms = rec["fps"].get("ms")
+    print(f"  host cloud regeneration: {per_cloud:.2f} ms a cloud ({HOST_CLOUDS} masks of {HEAVY_RAW}^2, numpy) on this "
+          f"machine's host, {2 * RUN_BS * per_cloud:.0f} ms for a step's {2 * RUN_BS}; the FPS kernel (phase (e)): "
+          f"{fps_ms:.4f} ms for 16 clouds, on {card}; a 50-pixel mask gives the zero cloud")
+
+
 def main() -> int:
     import torch
 
@@ -2658,6 +2836,11 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_data_parallel(torch, dev, rec, smi)
         seconds["l"] = time.perf_counter() - t0
+        print("(m) the host augmentation route: cli.train_mscmrseg.main -host_aug (bfloat16, heavy) and MM-WHS with host "
+              "cloud regeneration (build_mmwhs_pipelines(host_cloud_regen=True), UDATrainer(device_augment=False))")
+        t0 = time.perf_counter()
+        phase_host_route(torch, dev, rec, smi, per_step, heavy_pre_step_ms, pre_step_ms)
+        seconds["m"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(tests, ignore_errors=True)

@@ -5,12 +5,13 @@ Flag set mirrors reference ``src/train_mscmrseg.py:675-697`` (including the
 store_false semantics of ``-aug``/``-offdecay``), plus the JAX package's
 extras (``-dtype``, ``bfloat16`` by default as there, ``-ndev``, ``-dist``,
 ``-workdir``, ``-logdir``, ``-host_aug``, ``-workers``). What differs here,
-each said in the flag's help: ``-no_packed`` parses and changes nothing;
-``-host_aug`` is not ported. Without ``-aug`` the run augments with the
-heavy pipeline on the device, as the reference does (``-aug2``: the medium
-one; ``-aug``: no augmentation). Training runs on the current CUDA device
-with the hand-written kernels (Chamfer, BN statistics). PNG slices are read
-by ``utils/png.py``, without OpenCV.
+said in its help: ``-no_packed`` parses and changes nothing. Without
+``-aug`` the run augments with the heavy pipeline on the device, as the
+reference does (``-aug2``: the medium one; ``-aug``: no augmentation);
+``-host_aug`` runs the same pipeline on the host instead, with the numpy
+twin (``ops/host_augment.py``) in the loader's feeder thread. Training runs
+on the current CUDA device with the hand-written kernels (Chamfer, BN
+statistics). PNG slices are read by ``utils/png.py``, without OpenCV.
 
 Data parallelism (``cli/common.py:run_ranks``): ``-ndev N`` starts N ranks,
 one a card (0: every visible card), and ``-dist`` makes this process one
@@ -68,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-workdir", type=str, default="weights")
     p.add_argument("-logdir", type=str, default="runs")
     p.add_argument("-host_aug", action="store_true",
-                   help="augment on host instead of device; not ported (ROADMAP Queue 1 items 9 and 10)")
+                   help="augment on the host (the numpy twin, in the loader) instead of the device")
     p.add_argument(
         "-no_vert_t_metric",
         help="skip the logged-only target-domain chamfer diagnostic (the "
@@ -146,19 +147,10 @@ def config_from_args(args) -> "UDAConfig":
     )
 
 
-def check_ported(args) -> None:
-    """Refuse, before anything is built, what this package does not do yet."""
-    if args.host_aug:
-        raise NotImplementedError(
-            "-host_aug (ops/host_augment.py) is not ported: ROADMAP Queue 1 items 9 and 10; augment on the device"
-        )
-
-
 def main(argv=None, device=None):
     """Train. ``device=None`` is the current CUDA device (raising without
     one); the CPU tests pass ``device="cpu"``."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     cfg = with_kernels(config_from_args(args))
     print(appendix(cfg))
     run_ranks(_train, cfg, args, device)
@@ -171,7 +163,10 @@ def _train(mesh, cfg, args, device=None):
     from pointcloududa_torch.train.loop import UDATrainer
 
     row_shard = None if mesh is None else trainer_row_shard(mesh, cfg.bs)
-    train_iter, val_iters = build_mscmrseg_pipelines(cfg, workers=args.workers, device_augment=True, row_shard=row_shard)
+    device_augment = not args.host_aug
+    train_iter, val_iters = build_mscmrseg_pipelines(
+        cfg, workers=args.workers, device_augment=device_augment, row_shard=row_shard
+    )
     trainer = UDATrainer(
         cfg,
         train_iter,
@@ -179,7 +174,7 @@ def _train(mesh, cfg, args, device=None):
         workdir=args.workdir,
         logdir=args.logdir,
         mesh=mesh,
-        device_augment=True,
+        device_augment=device_augment,
         device=device,
     )
     if cfg.load_weight:

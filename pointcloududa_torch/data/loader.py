@@ -5,13 +5,16 @@ Replaces the reference's synchronous ``for ... in zip(trainA, trainB)`` host
 loop with per-step H2D copies (``src/train_mscmrseg.py:183,201,219``, the
 documented hot-loop bottleneck, SURVEY.md §3.1):
 
-  sampler (ring indices) -> worker pool (decode) -> assembled numpy batch ->
-  background prefetch thread -> copy to the card one batch ahead of compute.
+  sampler (ring indices) -> worker pool (decode) -> assembled numpy batch
+  (-> host augmentation and cloud regeneration, optional) -> background
+  prefetch thread -> copy to the card one batch ahead of compute.
 
-Augmentation and point-cloud regeneration run on the device
-(``ops/augment.py``, ``ops/pointcloud_device.py``): the loader ships raw
-uint8/f32 arrays. The host augmentation route of the JAX package
-(``host_augment`` callables, ``regen_vertices``) is not ported.
+Device-side augmentation (``ops/augment.py``, ``ops/pointcloud_device.py``)
+is the default fast path: the loader then ships raw uint8/f32 arrays. The
+host route (``BatchAssembler(host_augment=ops.host_augment.make_host_augment
+(aug), regen_vertices=...)``) augments each assembled batch with the numpy
+twin and can regenerate the clouds from the warped masks
+(``data/pointcloud.py``); the assembler runs in the prefetch thread.
 """
 
 from __future__ import annotations
@@ -24,33 +27,47 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from pointcloududa_torch.data.pointcloud import mask_to_point_cloud
 from pointcloududa_torch.data.sampler import RingSampler
 from pointcloududa_torch.parallel import pad_batch
 
 
 class BatchAssembler:
     """Decodes a list of indices into one batch dict via a thread pool
-    (zlib and np.load release the GIL)."""
+    (zlib and np.load release the GIL).
+
+    ``host_augment(images, masks, rng) -> (images, masks)`` augments the
+    assembled batch with the caller's numpy ``rng``; with ``regen_vertices``
+    the clouds are then rebuilt from the augmented masks (float32, on the
+    0..255 voxel grid; the start of each cloud's FPS is a draw from numpy's
+    global generator, as in the JAX package)."""
 
     def __init__(self, adapter, workers: int = 4, host_augment: Optional[Callable] = None,
                  regen_vertices: bool = False):
-        if host_augment is not None or regen_vertices:
-            raise NotImplementedError(
-                "host augmentation and host point-cloud regeneration (ops/host_augment.py, "
-                "data/pointcloud.py) are not ported: ROADMAP Queue 1 items 9 and 10; "
-                "augment on the device instead"
-            )
         self._adapter = adapter
         self._pool = ThreadPoolExecutor(max_workers=workers) if workers > 0 else None
+        self._host_augment = host_augment
+        self._regen = regen_vertices
 
     def __call__(self, indices, rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
         if self._pool is not None:
             records = list(self._pool.map(self._adapter, indices))
         else:
             records = [self._adapter(i) for i in indices]
-        out = {"img": np.stack([r[0] for r in records]), "mask": np.stack([r[1] for r in records])}
+        imgs = np.stack([r[0] for r in records])
+        masks = np.stack([r[1] for r in records])
+        verts = None
         if records[0][2] is not None:
-            out["vert"] = np.stack([r[2] for r in records])
+            verts = np.stack([r[2] for r in records])
+        if self._host_augment is not None:
+            imgs, masks = self._host_augment(imgs, masks, rng)
+            if self._regen:
+                # MM-WHS parity: clouds regenerated from the warped masks
+                # (data_generator_mmwhs.py:256-264)
+                verts = np.stack([mask_to_point_cloud(m) for m in masks]).astype(np.float32)
+        out = {"img": imgs, "mask": masks}
+        if verts is not None:
+            out["vert"] = verts
         return out
 
 
@@ -80,7 +97,13 @@ class PairedIterator:
 
     ``row_shard=(lo, hi, target)`` enables multi-host operation: the global
     index batches are wrap-padded to ``target`` and only rows ``lo:hi`` are
-    decoded on this process (see :func:`shard_index_batch`)."""
+    decoded on this process (see :func:`shard_index_batch`).
+
+    On the host augmentation route, as in the JAX package, every process
+    seeds its numpy generator alike and draws only for the rows it decodes:
+    N ranks' augmented batches are not the one-process run's (the device
+    route draws for the global batch), and MM-WHS's min-max round trip
+    spans the rank's rows only."""
 
     def __init__(
         self,

@@ -3,7 +3,10 @@ against the JAX package's: samplers, index sharding, batch padding and the
 raw host batches of both `build_*_pipelines` on fabricated mini datasets.
 
 Everything here is integer bookkeeping and file decoding in numpy, so every
-comparison is exact (``assert_array_equal``, equal dtypes): no tolerance.
+comparison is exact (``assert_array_equal``, equal dtypes), but for the
+images of the host augmentation route, which OpenCV makes in the JAX package
+and numpy in the port: held as ``tests/test_torch_port_host_augment.py``
+holds them (the masks and clouds of that route are exact).
 The mini datasets are made from a seed with numpy in the directory contracts
 of ``data/mmwhs.py`` and ``data/mscmrseg.py``; ``make_mmwhs_dataset`` and
 ``make_mscmrseg_dataset`` also serve the trainer and CLI tests.
@@ -21,11 +24,14 @@ from pointcloududa_tpu.config import mscmrseg_default as ref_mscmrseg_default
 from pointcloududa_tpu.data import build as ref_build
 from pointcloududa_tpu.data import loader as ref_loader
 from pointcloududa_tpu.data.sampler import RingSampler as RefRingSampler
+from pointcloududa_tpu.ops.host_augment import make_host_augment as ref_make_host_augment
 from pointcloududa_tpu.parallel import pad_batch as ref_pad_batch
 from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
 from pointcloududa_torch.data import build, loader
 from pointcloududa_torch.data.sampler import RingSampler
+from pointcloududa_torch.ops.host_augment import make_host_augment
 from pointcloududa_torch.parallel import pad_batch
+from test_torch_port_host_augment import _images_close
 from test_torch_port_step import one_torch_thread  # noqa: F401
 
 
@@ -225,22 +231,84 @@ def test_mscmrseg_raw_batches_equal_the_jax_package(mscmrseg_root, point_head):
     assert ("vert_s" in first) is point_head
 
 
-@pytest.mark.parametrize(
-    "call",
-    [
-        lambda root: build.build_mmwhs_pipelines(mmwhs_default(data_dir=root, aug="light"), host_cloud_regen=True),
-        lambda root: build.build_mmwhs_pipelines(mmwhs_default(data_dir=root, aug="light"), device_augment=False),
-        lambda root: build.build_mscmrseg_pipelines(mscmrseg_default(data_dir=root), device_augment=False),
-        lambda root: loader.BatchAssembler(None, host_augment=lambda imgs, masks, rng: (imgs, masks)),
-        lambda root: loader.BatchAssembler(None, regen_vertices=True),
-    ],
-    ids=["mmwhs-host-cloud-regen", "mmwhs-host-aug", "mscmrseg-host-aug", "assembler-host-augment", "assembler-regen"],
-)
-def test_host_pipelines_are_refused_by_name(mmwhs_root, call):
-    """The host augmentation route is not ported: asking for it raises at
-    construction and names the ROADMAP items."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 items 9 and 10"):
-        call(mmwhs_root)
+def _first_train_batch(train_iter):
+    return next(iter(train_iter.epoch()))
+
+
+def _assembled(loader_module, hook, adapter, regen):
+    assemble = loader_module.BatchAssembler(adapter, workers=0, host_augment=hook, regen_vertices=regen)
+    return assemble([0, 3, 1, 2], np.random.default_rng(5))
+
+
+HOST_CASES = {
+    # (workload, the port's call, the JAX package's call): each returns one raw batch
+    "mmwhs-host-cloud-regen": ("mmwhs",
+                               lambda r: _first_train_batch(build.build_mmwhs_pipelines(
+                                   mmwhs_default(**HOST_MMWHS, aug="light", data_dir=r), workers=2, host_cloud_regen=True)[0]),
+                               lambda r: _first_train_batch(ref_build.build_mmwhs_pipelines(
+                                   ref_mmwhs_default(**HOST_MMWHS, aug="light", data_dir=r), workers=2, host_cloud_regen=True)[0])),
+    "mmwhs-host-aug": ("mmwhs",
+                       lambda r: _first_train_batch(build.build_mmwhs_pipelines(
+                           mmwhs_default(**HOST_MMWHS, aug="heavy", data_dir=r), workers=2, device_augment=False)[0]),
+                       lambda r: _first_train_batch(ref_build.build_mmwhs_pipelines(
+                           ref_mmwhs_default(**HOST_MMWHS, aug="heavy", data_dir=r), workers=2, device_augment=False)[0])),
+    "mscmrseg-host-aug": ("mscmrseg",
+                          lambda r: _first_train_batch(build.build_mscmrseg_pipelines(
+                              mscmrseg_default(bs=4, ns=6, data_dir=r, d4=True), workers=2, device_augment=False)[0]),
+                          lambda r: _first_train_batch(ref_build.build_mscmrseg_pipelines(
+                              ref_mscmrseg_default(bs=4, ns=6, data_dir=r, d4=True), workers=2, device_augment=False)[0])),
+    "assembler-host-augment": ("mscmrseg",
+                               lambda r: _assembled(loader, make_host_augment("aug2"), _msc_adapter(r), False),
+                               lambda r: _assembled(ref_loader, ref_make_host_augment("aug2"), _msc_adapter(r), False)),
+    "assembler-regen": ("mmwhs",
+                        lambda r: _assembled(loader, make_host_augment("light"), _mm_adapter(r), True),
+                        lambda r: _assembled(ref_loader, ref_make_host_augment("light"), _mm_adapter(r), True)),
+}
+HOST_MMWHS = dict(bs=4, ns=6, crop_size=32, d4=True)
+
+
+def _msc_adapter(root):
+    from pointcloududa_torch.data.manifest import load_ids
+    from pointcloududa_torch.data.mscmrseg import MSCMRSegAdapter
+
+    return MSCMRSegAdapter(data_dir=root, ids=load_ids(os.path.join(root, "aug_trainA.csv")), source="source", phase="train",
+                           load_vertices=True)
+
+
+def _mm_adapter(root):
+    from pointcloududa_torch.data.manifest import load_ids
+    from pointcloududa_torch.data.mmwhs import MMWHSAdapter
+
+    return MMWHSAdapter(data_dir=root, ids=load_ids(os.path.join(root, "mr_train_list.csv")), source="source", phase="train",
+                        load_vertices=False, match_hist=False)
+
+
+@pytest.mark.parametrize("case", list(HOST_CASES))
+def test_host_pipelines_equal_the_jax_package(mmwhs_root, mscmrseg_root, case):
+    """The host augmentation route: each package builds it with the same
+    seeds and numpy's global generator seeded alike before its first batch
+    (the start of each regenerated cloud's FPS is a global draw). The keys,
+    dtypes, shapes, masks, clouds and sample masks are equal; the images are
+    held as ``tests/test_torch_port_host_augment.py`` holds the twins'
+    (here without knowing which samples the superpixels touched)."""
+    workload, port_call, ref_call = HOST_CASES[case]
+    root = mmwhs_root if workload == "mmwhs" else mscmrseg_root
+    np.random.seed(3)
+    got = port_call(root)
+    np.random.seed(3)
+    want = ref_call(root)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape, key
+        if key.startswith("img"):
+            span = 1.0 if want[key].dtype == np.uint8 else float(want[key].max() - want[key].min()) / 255.0
+            _images_close(got[key], want[key], span, [True] * len(want[key]), f"{case}: {key}")
+        else:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    verts = [k for k in want if k.startswith("vert")]
+    if case in ("mmwhs-host-cloud-regen", "assembler-regen"):  # rebuilt on the host: float32 on the voxel grid
+        assert verts and all(got[k].dtype == np.float32 and got[k].shape[1:] == (300, 3) for k in verts)
+        assert all(np.array_equal(got[k], np.round(got[k])) and got[k].any() for k in verts)
 
 
 def test_missing_datalist_raises(tmp_path):

@@ -271,7 +271,7 @@ def _code(obj):
         ("parallel.mesh", ["pad_batch"]),
         ("train.checkpoint", ["EarlyStoppingCallback"]),
         ("utils.timer", ["timeit", "TimeChecker"]),
-        ("data.loader", ["shard_index_batch", "PairedIterator"]),
+        ("data.loader", ["shard_index_batch", "PairedIterator", "BatchAssembler"]),
         ("utils.nifti", ["load_nii", "save_nii", "_open"]),
         ("ops.metrics", ["dice_binary", "_surface_distances", "hausdorff_distance", "average_surface_distance", "evaluate",
                          "metrics2", "compute_metrics_on_files", "metrics_mmwhs_volume"]),
@@ -279,6 +279,8 @@ def _code(obj):
         ("ops.postprocess", ["to_categorical", "soft_to_hard_pred", "keep_largest_connected_components", "crop_volume",
                              "reconstruct_volume"]),
         ("eval.volume", ["read_mmwhs_volume"]),
+        # the twin's definitions that call no OpenCV; the rest call ops/host_image.py (held in test_torch_port_host_augment.py)
+        ("ops.host_augment", ["_child_mats_np", "_kernel3", "someof_draw_np", "_directed_edge_kernel_np", "_perlin_mask_np"]),
     ],
 )
 def test_copied_definitions_run_the_jax_packages_code(module, names):

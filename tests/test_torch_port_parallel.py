@@ -27,6 +27,10 @@ and how tightly:
   update plus two ulps) and the running statistics rtol 1e-4, atol 1e-5;
 - the MM-WHS device preprocess (light augmentation, clouds by FPS), called
   twice: each rank's rows bit-equal to the one process's;
+- the host augmentation route (heavy, the source clouds rebuilt on the
+  host): each rank's raw batches equal the JAX package's ``PairedIterator``
+  under the same ``row_shard`` (images as tests/test_torch_port_host_augment.py
+  holds them);
 - ``UDATrainer`` over 2 epochs with a truncated tail batch and validation
   sets that do not divide the batch: the same best epoch and checkpoint
   name, logged records rtol 1e-4 (accuracies two decisions), the final
@@ -196,6 +200,33 @@ def test_preprocess_rows_equal_the_one_process_rows(runs):
             assert set(g) == set(w) == {"img_s", "mask_s", "img_t", "vert_s", "vert_t"}
             for k in w:
                 assert np.array_equal(g[k], w[k][lo:hi]), f"rank {rank} call {call}: {k}"
+
+
+def test_host_augmented_rows_equal_jaxs_under_the_same_row_shard(runs):
+    """The host augmentation route under two ranks, as in the JAX package:
+    every process seeds its ``PairedIterator`` alike and draws only for the
+    rows it decodes, so a rank's batch is JAX's ``PairedIterator``'s under
+    the same ``row_shard`` (not the one-process run's rows). Masks, clouds
+    and sample masks equal; images as the twins' are held."""
+    from pointcloududa_tpu.data import loader as ref_loader
+    from pointcloududa_tpu.ops.host_augment import make_host_augment as ref_make_host_augment
+    from test_torch_port_host_augment import _images_close
+
+    _, two, _ = runs
+    bs = ranks.trainer_cfg().bs
+    for rank, got in enumerate(r["host_augment"] for r in two):
+        row_shard = trainer_row_shard(Mesh(WORLD, rank, torch.device("cpu")), bs)
+        np.random.seed(ranks.HOST_GLOBAL_SEED)
+        want = list(ranks.host_iterator(ref_loader, ref_make_host_augment, row_shard).epoch())
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            assert list(g) == list(w) and "vert_s" in w and "sample_mask" in w
+            for key in w:
+                assert g[key].dtype == w[key].dtype and g[key].shape == w[key].shape, key
+                if key.startswith("img"):
+                    _images_close(g[key], w[key], 1.0, [True] * len(w[key]), f"rank {rank} {key}")
+                else:
+                    np.testing.assert_array_equal(g[key], w[key], err_msg=f"rank {rank} {key}")
 
 
 def _records(path: str) -> list:

@@ -187,6 +187,40 @@ def trainer_case(mesh, root: str) -> dict:
             "ckpt": trainer.ckpt_gen.final_best_path, "gen": {k: v.numpy().copy() for k, v in trainer.gen.state_dict().items()}}
 
 
+def host_iterator(loader_module, make_host_augment, row_shard):
+    """The host augmentation route over the trainer case's streams: heavy
+    pipeline, the source clouds rebuilt from its warped masks. The loader and
+    the hook come from the caller, so that the test can build the JAX
+    package's with the same adapters."""
+    from pointcloududa_torch.data.sampler import RingSampler
+
+    cfg = trainer_cfg()
+    hook = make_host_augment("heavy")
+    return loader_module.PairedIterator(
+        RingSampler(N_TRAIN, cfg.bs, n_samples=cfg.ns, shuffle_seed=cfg.seed),
+        RingSampler(N_TRAIN, cfg.bs, n_samples=cfg.ns, shuffle_seed=cfg.seed + 1),
+        loader_module.BatchAssembler(SynthAdapter(1, N_TRAIN, cfg.crop_size), workers=0, host_augment=hook, regen_vertices=True),
+        loader_module.BatchAssembler(SynthAdapter(2, N_TRAIN, cfg.crop_size), workers=0, host_augment=hook),
+        seed=cfg.seed,
+        row_shard=row_shard,
+    )
+
+
+HOST_GLOBAL_SEED = 9  # numpy's global generator, seeded before the epoch: the clouds' FPS starts
+
+
+def host_augment_case(mesh) -> list:
+    """This rank's raw train batches of one epoch of :func:`host_iterator`
+    under its ``row_shard``."""
+    from pointcloududa_torch.data import loader
+    from pointcloududa_torch.ops.host_augment import make_host_augment
+    from pointcloududa_torch.parallel import trainer_row_shard
+
+    row_shard = None if mesh is None else trainer_row_shard(mesh, trainer_cfg().bs)
+    np.random.seed(HOST_GLOBAL_SEED)
+    return list(host_iterator(loader, make_host_augment, row_shard).epoch())
+
+
 def replicate_case(mesh) -> dict:
     """``replicate`` over states built from one seed on every rank, then
     from a seed of each rank's own."""
@@ -224,6 +258,7 @@ def run_all(mesh, root: str) -> dict:
     out["norm1d"] = norm1d_case(mesh)
     out["bn"] = bn_case(mesh)
     out["trainer"] = trainer_case(mesh, root if mesh is None else os.path.join(root, "ranks"))
+    out["host_augment"] = host_augment_case(mesh)
     if mesh is not None:
         out["replicate"] = replicate_case(mesh)
         out["average_grads"] = average_grads_case(mesh)
