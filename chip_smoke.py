@@ -2,8 +2,9 @@
 """Smoke test of the PyTorch port (``pointcloududa_torch``) on one NVIDIA GPU.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
-It builds the CUDA kernels from ``pointcloududa_torch/csrc`` (into the
-git-ignored ``build/pointcloududa_torch/``), then runs, in order:
+It builds the CUDA kernels from ``pointcloududa_torch/csrc`` with nvcc and,
+at the same time, the host library (``csrc/pcuda_host.cpp``) with g++ (both
+into the git-ignored ``build/pointcloududa_torch/``), then runs, in order:
 
   (a) Chamfer: the one-launch forward, the one-direction nearest-neighbour
       search and the backward kernels against their plain PyTorch versions
@@ -190,7 +191,25 @@ git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       every regenerated cloud of the epochs' first batches on its warped
       mask's boundary voxels and a 50-pixel mask's cloud zero; ms per
       iteration and waiting for batches beside the device route's (phases
-      (i) and (k)), ms per host cloud beside phase (e)'s FPS.
+      (i) and (k)), the host-regeneration iteration beside the one with
+      numpy clouds, ms per host cloud beside phase (e)'s FPS;
+  (n) the reproduction runbooks from raw data, every stage of each, through
+      ``prep/runbook.py:drive``: MS-CMRSeg (``prep/reproduce.py``) on
+      fabricated NIfTI patients (int16, 256^2 x 12 and one 480^2 x 12 for the
+      nearest resize, labels {0, 200, 500, 600} with ``lge_test_gt``) ->
+      PNGs, datalists, clouds, ``_r1``/``_r2`` rotations, the table's
+      ``-aug2 -d1 -d2 -d4`` row (bfloat16, nf 32, 224^2, bs 16) and the
+      evaluation with ``-klc``; MM-WHS (``prep/reproduce_mmwhs.py`` main) on
+      fabricated TFRecords of 256 x 256 x 3 float32 and phase (g)'s CT
+      volumes -> npy, clouds, the paper's command with ``-aug light`` (FPS on
+      the card) and its final evaluation, then the evaluate stage. Only
+      ``-ns`` and ``-e`` are cut (2 epochs of 4 steps). Every stage's
+      artifacts exist; each train stage's launches equal what steps, cadence
+      and validation batches give (``by_path.reproduce_mscmrseg``,
+      ``by_path.reproduce_mmwhs``) and the evaluate stages launch none;
+      per-patient metrics finite (or -1); 64 of the made masks' clouds from
+      the host library bit-equal to the numpy plain versions, ms a cloud of
+      each; seconds per stage.
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
@@ -224,6 +243,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -2734,6 +2754,10 @@ def phase_host_route(torch, dev, rec, card, per_step, heavy_pre_step_ms, mmwhs_p
         _require(len(seen) == 2, f"{len(seen)} first batches seen, not one an epoch")
         n = _check_host_clouds(seen)
         print(f"  {n} regenerated clouds of the epochs' first batches lie on their warped masks' boundary voxels")
+        regen = LOOP_MS["host_cloud_regen"]
+        print(f"  MM-WHS host-regeneration iteration with the host library's clouds: {regen['iteration_ms']:.2f} ms (waiting for "
+              f"batches {regen['wait_ms']:.2f}), on {card}; with numpy clouds: {NUMPY_REGEN_ITERATION_MS} ms (NVIDIA H100 80GB "
+              f"HBM3, 700 W)")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
@@ -2748,9 +2772,241 @@ def phase_host_route(torch, dev, rec, card, per_step, heavy_pre_step_ms, mmwhs_p
     small[100:105, 100:110] = 1  # 50 pixels: at the threshold
     _require(not mask_to_point_cloud(small).any(), "a mask of 50 pixels gave a cloud")
     fps_ms = rec["fps"].get("ms")
-    print(f"  host cloud regeneration: {per_cloud:.2f} ms a cloud ({HOST_CLOUDS} masks of {HEAVY_RAW}^2, numpy) on this "
+    print(f"  host cloud regeneration: {per_cloud:.2f} ms a cloud ({HOST_CLOUDS} masks of {HEAVY_RAW}^2, the host library) on this "
           f"machine's host, {2 * RUN_BS * per_cloud:.0f} ms for a step's {2 * RUN_BS}; the FPS kernel (phase (e)): "
           f"{fps_ms:.4f} ms for 16 clouds, on {card}; a 50-pixel mask gives the zero cloud")
+
+
+# phase (n): the reproduction runbooks (prep/reproduce.py, prep/reproduce_mmwhs.py)
+# on the card at full width, from raw data. MS-CMRSeg: raw patients, (X, Y, Z)
+# as the nii stores them, 256^2 x 12 and one at 480^2 x 12 (the nearest
+# resize); patients 1-3 train on bSSFP, 4 validates, 1-4 are the LGE target
+# and its evaluation. MM-WHS: REPRO_SLICES TFRecords of the release's
+# 256 x 256 x 3 float32 records a split, and phase (g)'s four CT test
+# volumes. The paper rows' flags are kept; only -ns and -e are cut, to 2
+# epochs of REPRO_NS // 16 steps at bs 16. The host library's clouds are held
+# bit-equal to the numpy plain versions on REPRO_CLOUDS of the masks the
+# runbooks made; the plain version is timed on REPRO_PLAIN_TIMED of them.
+REPRO_PATIENTS = {1: (256, 256, 12), 2: (256, 256, 12), 3: (256, 256, 12), 4: (480, 480, 12)}
+REPRO_SLICES = 32
+REPRO_NS, REPRO_EPOCHS = 64, 2
+REPRO_CLOUDS, REPRO_PLAIN_TIMED = 64, 8
+MS_PAPER_ROW = ["-aug2", "-d1", "-d2", "-d4"]  # the D1+D2+D4 row of the MS-CMRSeg table: every kernel of the step
+# phase (m)'s MM-WHS host-regeneration iteration with the numpy clouds that the
+# host library replaced: ms, from this script's run on an NVIDIA H100 80GB
+# HBM3 at 700 W before the library (numpy's 204.58-245.08 ms a cloud)
+NUMPY_REGEN_ITERATION_MS = 8281.63
+
+
+def _fabricate_raw_mscmrseg(root: str, seed: int) -> int:
+    """The raw MS-CMRSeg layout of ``prep/reproduce.py``: int16 NIfTI images
+    (noise over brighter structures) and labels in the raw values {0, 200,
+    500, 600} for bSSFP (``labels/``) and LGE (``labels/lge_test_gt/``),
+    written by the port's ``save_nii``; returns the slices per modality."""
+    from pointcloududa_torch.utils.nifti import save_nii
+
+    rng = np.random.default_rng(seed)
+    raw = np.array([0, 200, 500, 600], np.int16)
+    d = lambda *p: os.path.join(root, "raw_data", *p)  # noqa: E731
+    for sub in ("dataset", os.path.join("labels", "lge_test_gt")):
+        os.makedirs(d(sub), exist_ok=True)
+    for pat, (x, y, z) in REPRO_PATIENTS.items():
+        for tag, gt in (("C0", d("labels", f"patient{pat}_C0_manual.nii.gz")),
+                        ("LGE", d("labels", "lge_test_gt", f"patient{pat}_LGE_manual.nii.gz"))):
+            labels = _ellipsoids((z, y, x), 3, rng)  # (Z, Y, X)
+            img = rng.normal(300.0, 60.0, labels.shape) + 150.0 * labels
+            save_nii(d("dataset", f"patient{pat}_{tag}.nii.gz"), img.astype(np.int16).T)
+            save_nii(gt, raw[labels].T)
+    return sum(z for _, _, z in REPRO_PATIENTS.values())
+
+
+def _fabricate_raw_mmwhs(root: str, seed: int) -> int:
+    """The raw PnP-AdaNet layout of ``prep/reproduce_mmwhs.py``: per split
+    REPRO_SLICES TFRecords of 256 x 256 x 3 float32 ``data_vol`` / ``label_vol``
+    (labels 0-4, repeated over the 3 channels), written by the port's
+    ``utils/tfrecord.py``, the datalists, and phase (g)'s CT test volumes;
+    returns the slices written."""
+    from pointcloududa_torch.data.manifest import write_ids
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks
+    from pointcloududa_torch.utils.tfrecord import write_example, write_tfrecord
+
+    rng = np.random.default_rng(seed)
+    for j, split in enumerate(("ct_train", "ct_val", "mr_train", "mr_val")):
+        tf_dir = os.path.join(root, "PnpAda_release_data", "train_n_val", f"{split}_tfs")
+        os.makedirs(tf_dir)
+        ids = [f"{split}_slice{i}.tfrecords" for i in range(REPRO_SLICES)]
+        for _id, mask in zip(ids, synthetic_blob_masks(REPRO_SLICES, 256, seed=seed + 1 + j)):
+            img = rng.normal(size=(256, 256, 3)).astype("<f4") * 0.5 + mask[..., None].astype("<f4") * 0.5
+            lab = np.repeat(mask[..., None], 3, -1).astype("<f4")
+            write_tfrecord(os.path.join(tf_dir, _id), [write_example({"data_vol": img.tobytes(), "label_vol": lab.tobytes()})])
+        write_ids(os.path.join(root, f"{split}_list.csv"), ids)
+    return 4 * REPRO_SLICES + _fabricate_ct_test(root, seed)
+
+
+def _drive_runbook(runbook, run, stage_s, counts_of):
+    """``run()``, which drives ``runbook``'s stages through its ``run_stage``
+    on the card, with each stage timed into ``stage_s`` and the kernels'
+    launches of each CLI stage, from 0, into ``counts_of``; returns what the
+    stages printed."""
+    real = runbook.run_stage
+
+    def timed(module, stage_argv, workdir, device=None):
+        name = module.rsplit(".", 1)[1]
+        _reset_launches()
+        t0 = time.perf_counter()
+        real(module, stage_argv, workdir, device=device)
+        stage_s.append((name, time.perf_counter() - t0))
+        if module.startswith(runbook.CLI):
+            counts_of[name] = _launch_counts()
+
+    runbook.run_stage = timed
+    try:
+        return _quiet(run)[1]
+    finally:
+        runbook.run_stage = real
+
+
+def _csv_rows(path: str) -> list:
+    import csv
+
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def _check_metric_rows(rows, n: int, what: str, means: bool = False) -> None:
+    """``n`` rows of a per-patient CSV whose metrics are finite and >= 0 or the
+    -1 sentinel of an empty structure; ``means``: each is a mean over
+    structures, which may mix the sentinel in, so only finite."""
+    _require(len(rows) == n, f"{what}: {len(rows)} rows, not {n}")
+    for row in rows:
+        for key in ("DC", "HD", "ASD") if means else ("DSC", "HD", "ASD"):
+            v = float(row[key])
+            _require(np.isfinite(v) and (means or v >= 0 or v == -1), f"{what}: {key}={row[key]} is neither >= 0 nor -1")
+
+
+def _clouds_native_and_plain(masks) -> tuple:
+    """Every mask's cloud from the host library and from the numpy plain
+    versions, from the same seeds: equal bit for bit. Returns the ms a cloud
+    of each on this machine's host (the plain version over the first
+    REPRO_PLAIN_TIMED masks; the rest run four at a time, untimed)."""
+    from pointcloududa_torch.data import pointcloud as pc
+
+    def plain(i):
+        binary = (np.asarray(masks[i]) > 0).astype(np.uint8)
+        if binary.sum() <= 50:
+            return np.zeros((300, 3))
+        pts = pc.boundary_voxels_plain(np.stack([binary] * 3)).astype(np.float64)
+        return np.asarray(pc.farthest_point_sampling_plain(pts, 300, seed=i), np.int64).astype(np.float64)
+
+    t0 = time.perf_counter()
+    native = [pc.mask_to_point_cloud(m, seed=i) for i, m in enumerate(masks)]
+    native_ms = (time.perf_counter() - t0) / len(masks) * 1e3
+    t0 = time.perf_counter()
+    plains = [plain(i) for i in range(REPRO_PLAIN_TIMED)]
+    plain_ms = (time.perf_counter() - t0) / REPRO_PLAIN_TIMED * 1e3
+    with ThreadPoolExecutor(4) as pool:
+        plains += list(pool.map(plain, range(REPRO_PLAIN_TIMED, len(masks))))
+    for i, (a, b) in enumerate(zip(native, plains)):
+        _require(a.shape == (300, 3) and np.array_equal(a, b), f"mask {i}: the host library's cloud is not the plain one")
+    _require(sum(bool(a.any()) for a in native) >= len(masks) // 2, "most of the made masks gave no cloud")
+    return native_ms, plain_ms
+
+
+def phase_reproduce(torch, dev, rec, card, per_step):
+    """(n) both reproduction runbooks through their ``main``, every stage, on
+    fabricated raw data in a temporary directory."""
+    from pointcloududa_torch.data.manifest import load_ids
+    from pointcloududa_torch.prep import reproduce, reproduce_mmwhs
+    from pointcloududa_torch.prep.runbook import drive
+    from pointcloududa_torch.utils.png import IMREAD_GRAYSCALE, read_png
+
+    tmp = tempfile.mkdtemp(prefix="pcuda_smoke_repro_")
+    steps = -(-REPRO_NS // 16)
+    zero = {name: 0 for name in KERNELS}
+    try:
+        # MS-CMRSeg: NIfTI -> PNGs, datalists, clouds, _r1/_r2, the D1+D2+D4 row (-aug2, bfloat16), evaluation with -klc
+        root, work = os.path.join(tmp, "input_aug"), os.path.join(tmp, "weights_ms")
+        t0 = time.perf_counter()
+        n = _fabricate_raw_mscmrseg(root, seed=11)
+        print(f"  MS-CMRSeg: fabricated {len(REPRO_PATIENTS)} raw patients ({n} slices a modality; "
+              f"{', '.join(f'{p}: {s}' for p, s in REPRO_PATIENTS.items())}) in {time.perf_counter() - t0:.1f} s")
+        stage_s, counts = [], {}
+        # the runbook's stages for these patients (its command line takes the release's 45), driven as its main drives them;
+        # the later -ns overrides the stage's own
+        stages = reproduce.build_stages(root, work, pats=(1, 5), val_pats=(4, 5), eval_pats=(1, 5),
+                                        train_args=MS_PAPER_ROW + ["-ns", str(REPRO_NS)], epochs=REPRO_EPOCHS)
+        _drive_runbook(reproduce, lambda: drive(stages, reproduce.run_stage, work), stage_s, counts)
+        _require(len(stage_s) == len(stages) == 20, f"{len(stage_s)} of {len(stages)} stages ran")
+        ids = {csv: load_ids(os.path.join(root, f"{csv}.csv")) for csv in ("aug_trainA", "testA", "aug_trainB", "testB")}
+        for split, sub in (("aug_trainA", "trainA"), ("aug_trainB", "trainB")):
+            base = [i for i in ids[split] if not i.endswith(("_r1", "_r2"))]
+            _require(len(ids[split]) == 3 * len(base) and {f"{i}_{r}" for i in base for r in ("r1", "r2")} <= set(ids[split]),
+                     f"{split}: the _r1/_r2 ids are missing")
+            for _id in ids[split]:
+                for path in (os.path.join(root, "processed", sub, f"{_id}.png"), os.path.join(root, "processed", sub + "mask", f"{_id}.png"),
+                             os.path.join(root, "vertices", sub, f"{_id}.npy")):
+                    _require(os.path.isfile(path), f"missing artifact {path}")
+        val_batches = sum(-(-len(ids[c]) // 16) for c in ("testA", "testB", "aug_trainB"))
+        want = {name: k * REPRO_EPOCHS * steps for name, k in _bf16_step_counts(per_step).items()}
+        want["chamfer_forward"] += REPRO_EPOCHS * val_batches
+        _require(counts["train_mscmrseg"] == want, f"MS-CMRSeg train stage launches {counts['train_mscmrseg']}, derived {want}")
+        _require(counts["evaluate_mscmrseg"] == zero, f"MS-CMRSeg evaluate stage launched {counts['evaluate_mscmrseg']}")
+        _record_launches(rec, "reproduce_mscmrseg", counts["train_mscmrseg"], {k for k, v in want.items() if v})
+        _record_launches(rec, "reproduce_mscmrseg_evaluate", counts["evaluate_mscmrseg"], set())
+        rows = _csv_rows(os.path.join(work, "per_patient.csv"))
+        _check_metric_rows(rows, 3 * len(REPRO_PATIENTS), "MS-CMRSeg per_patient.csv")
+        ms_masks = [read_png(os.path.join(root, "processed", "trainBmask", f"{i}.png"), IMREAD_GRAYSCALE)
+                    for i in ids["aug_trainB"][: REPRO_CLOUDS // 2]]
+        print(f"  MS-CMRSeg stages, s: " + ", ".join(f"{name} {s:.2f}" for name, s in stage_s))
+        print(f"  ids: trainA {len(ids['aug_trainA'])}, trainB {len(ids['aug_trainB'])} with _r1/_r2, testA {len(ids['testA'])}, "
+              f"testB {len(ids['testB'])}; launches of the train stage ({REPRO_EPOCHS} epochs of {steps} steps, {val_batches} "
+              f"validation batches an epoch): {counts['train_mscmrseg']}, as derived; the evaluate stage: 0; "
+              f"{len(rows)} per-patient rows, finite or -1")
+
+        # MM-WHS: TFRecords -> npy, clouds, the paper's command with -aug light (FPS on the card), its final
+        # evaluation, then the evaluate stage on the four CT volumes
+        root, work = os.path.join(tmp, "input"), os.path.join(tmp, "weights_mm")
+        t0 = time.perf_counter()
+        n = _fabricate_raw_mmwhs(root, seed=13)
+        print(f"  MM-WHS: fabricated {n} slices ({REPRO_SLICES} TFRecords a split, {len(CT_TEST)} CT volumes) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        stage_s, counts = [], {}
+        train_args = reproduce_mmwhs.PAPER_TRAIN + ["-aug", "light", "-ns", str(REPRO_NS), "-e", str(REPRO_EPOCHS)]
+        argv = ["--data-root", root, "--workdir", work, "--train-args", " ".join(train_args)]
+        text = _drive_runbook(reproduce_mmwhs, lambda: reproduce_mmwhs.main(argv), stage_s, counts)
+        _require(len(stage_s) == 7, f"{len(stage_s)} of 7 stages ran")
+        _require(text.count("Ave Dice:") == 2, "the train stage's final evaluation or the evaluate stage did not report")
+        mm_masks = []
+        for split in ("ct_train", "ct_val", "mr_train", "mr_val"):
+            base = os.path.join(root, "PnpAda_release_data", split)
+            split_ids = load_ids(os.path.join(root, f"{split}_list.csv"))
+            for _id in split_ids:
+                for sub in ("img", "mask", "vertices"):
+                    _require(os.path.isfile(os.path.join(base, sub, f"{_id}.npy")), f"missing artifact {split}/{sub}/{_id}.npy")
+            mm_masks += [np.load(os.path.join(base, "mask", f"{_id}.npy"))[..., 0] for _id in split_ids[: REPRO_CLOUDS // 8]]
+        cadence = steps  # vert_t_every 1: the target cloud and its metric every step
+        mm_val = 3 * -(-REPRO_SLICES // 16)
+        want = {name: 0 for name in KERNELS}
+        want.update(fps=REPRO_EPOCHS * (steps + cadence), chamfer_forward=REPRO_EPOCHS * (steps + cadence + mm_val),
+                    chamfer_backward=REPRO_EPOCHS * steps, bn_stats_forward_bf16=REPRO_EPOCHS * steps * 32,
+                    bn_stats_backward_bf16=REPRO_EPOCHS * steps * 32)
+        _require(counts["train_mmwhs"] == want, f"MM-WHS train stage launches {counts['train_mmwhs']}, derived {want}")
+        _require(counts["evaluate_mmwhs"] == zero, f"MM-WHS evaluate stage launched {counts['evaluate_mmwhs']}")
+        _record_launches(rec, "reproduce_mmwhs", counts["train_mmwhs"], {k for k, v in want.items() if v})
+        _record_launches(rec, "reproduce_mmwhs_evaluate", counts["evaluate_mmwhs"], set())
+        rows = _csv_rows(os.path.join(work, "per_patient.csv"))
+        _check_metric_rows(rows, len(CT_TEST), "MM-WHS per_patient.csv", means=True)
+        print(f"  MM-WHS stages, s: " + ", ".join(f"{name} {s:.2f}" for name, s in stage_s))
+        print(f"  launches of the train stage ({REPRO_EPOCHS} epochs of {steps} steps, {mm_val} validation batches an epoch, "
+              f"then its final evaluation): {counts['train_mmwhs']}, as derived; the evaluate stage: 0; {len(rows)} per-patient "
+              f"rows, finite")
+
+        native_ms, plain_ms = _clouds_native_and_plain(ms_masks + mm_masks)
+        print(f"  host clouds: {len(ms_masks) + len(mm_masks)} of the made masks ({len(ms_masks)} MS-CMRSeg 224^2 PNGs, "
+              f"{len(mm_masks)} MM-WHS 256^2) bit-equal to the numpy plain versions; the host library {native_ms:.2f} ms a cloud, "
+              f"numpy {plain_ms:.2f} ms ({plain_ms / native_ms:.1f}x), on this machine's host ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -2759,7 +3015,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
-    from pointcloududa_torch.utils import native
+    from pointcloududa_torch.utils import host_native, native
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -2773,8 +3029,11 @@ def main() -> int:
     print("TF32 off: torch.backends.cudnn.allow_tf32 = False, torch.backends.cuda.matmul.allow_tf32 = False")
 
     t0 = time.perf_counter()
-    native.load()
-    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {native.library_path()}")
+    with ThreadPoolExecutor(1) as pool:  # g++ builds the host library while nvcc builds the kernels
+        host = pool.submit(lambda: (host_native.load(), time.perf_counter() - t0)[1])
+        native.load()
+        print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s: {native.library_path()}")
+        print(f"host library built and loaded in {host.result():.2f} s: {host_native.library_path()}")
     usage = [ln.strip() for ln in native.build_log.splitlines() if any(k in ln for k in ("registers", "Compiling entry", "spill"))]
     for ln in usage:
         print(f"  ptxas: {ln}")
@@ -2841,6 +3100,12 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_host_route(torch, dev, rec, smi, per_step, heavy_pre_step_ms, pre_step_ms)
         seconds["m"] = time.perf_counter() - t0
+        print("(n) the reproduction runbooks from raw data: prep/reproduce.py (MS-CMRSeg NIfTI, -aug2 -d1 -d2 -d4, evaluation "
+              "with -klc) and prep/reproduce_mmwhs.py (TFRecords, the paper's command with -aug light), every stage")
+        t0 = time.perf_counter()
+        phase_reproduce(torch, dev, rec, smi, per_step)
+        seconds["n"] = time.perf_counter() - t0
+        print(f"  phase (n): {seconds['n']:.1f} s")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(tests, ignore_errors=True)

@@ -1,6 +1,6 @@
 """Point-cloud ground truth: mask -> 300 surface points (counterpart of the
-JAX package's ``data/pointcloud.py``, for the host cloud regeneration of
-``build_mmwhs_pipelines(..., host_cloud_regen=True)``).
+JAX package's ``data/pointcloud.py``: the vertex files of ``prep/`` and the
+host cloud regeneration of ``build_mmwhs_pipelines(..., host_cloud_regen=True)``).
 
 Capability parity with reference ``src/utils/npy2point.py``:
 binarise mask -> stack x3 into a pseudo-3D slab -> extract the isosurface ->
@@ -13,33 +13,50 @@ Design deviation (documented): instead of a marching-cubes triangulation
 the reference's own int cast the two point sets live on the same voxel
 lattice, and only FPS-selected surface samples survive downstream.
 
-numpy only: the JAX package's native host library (``csrc/pcuda_host.cpp``)
-is not built here. Its answers are the same: integer coordinates, exact
-float64 squared distances, ties broken on the first maximum. The cost is the
-reference's own: about 30k boundary voxels searched 300 times a cloud.
+FPS and the boundary voxels run in the port's host library
+(``utils/host_native.py`` over ``csrc/pcuda_host.cpp``, a copy of the JAX
+package's), as the JAX package runs them in its own; there is no numpy
+fallback. The numpy bodies stay as ``*_plain`` for the tests: both give the
+same clouds bit for bit (integer coordinates, exact float64 squared
+distances, ties broken on the first maximum, voxels in C order).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from pointcloududa_torch.utils import host_native
+
 NUM_POINTS = 300
+
+
+def _start(n: int, seed: int | None) -> int:
+    """The start index: ``np.random.default_rng(seed).integers(n)``; with
+    ``seed=None`` ``np.random.randint(n)``, a draw from numpy's GLOBAL
+    generator, as in the JAX package (the loader calls it that way): seed
+    ``np.random`` alike to reproduce a cloud."""
+    return int(np.random.randint(n) if seed is None else np.random.default_rng(seed).integers(n))
 
 
 def farthest_point_sampling(pts: np.ndarray, k: int, seed: int | None = None) -> np.ndarray:
     """Greedy FPS (reference ``graipher``, ``npy2point.py:11-18``): start at
-    a random point, iteratively take the point farthest from the chosen set.
-    O(k*N) like the reference, vectorised over the points.
-
-    The start index is ``np.random.default_rng(seed).integers(n)``; with
-    ``seed=None`` it is ``np.random.randint(n)``, a draw from numpy's GLOBAL
-    generator, as in the JAX package (the loader calls it that way): seed
-    ``np.random`` alike to reproduce a cloud."""
+    a random point (``_start``), iteratively take the point farthest from the
+    chosen set; O(k*N) in the host library."""
     pts = np.ascontiguousarray(pts, dtype=np.float64)
     n = len(pts)
     if n == 0:
         return np.zeros((k, pts.shape[1] if pts.ndim == 2 else 3))
-    start = np.random.randint(n) if seed is None else np.random.default_rng(seed).integers(n)
+    return host_native.fps(pts, k, _start(n, seed))
+
+
+def farthest_point_sampling_plain(pts: np.ndarray, k: int, seed: int | None = None) -> np.ndarray:
+    """``farthest_point_sampling`` in numpy, vectorised over the points (the
+    tests' reference)."""
+    pts = np.ascontiguousarray(pts, dtype=np.float64)
+    n = len(pts)
+    if n == 0:
+        return np.zeros((k, pts.shape[1] if pts.ndim == 2 else 3))
+    start = _start(n, seed)
     out = np.zeros((k, pts.shape[1]), dtype=np.float64)
     out[0] = pts[start]
     d = ((pts - out[0]) ** 2).sum(axis=1)
@@ -52,7 +69,12 @@ def farthest_point_sampling(pts: np.ndarray, k: int, seed: int | None = None) ->
 
 def boundary_voxels(slab: np.ndarray) -> np.ndarray:
     """(z, y, x) coords of 6-connected surface voxels of a binary 3-D slab,
-    in C order."""
+    in C order, from the host library."""
+    return host_native.boundary_voxels(slab)
+
+
+def boundary_voxels_plain(slab: np.ndarray) -> np.ndarray:
+    """``boundary_voxels`` in numpy (the tests' reference)."""
     s = slab.astype(bool)
     padded = np.pad(s, 1)
     interior = (

@@ -5,7 +5,9 @@ hosts of the card may lack it.
 Each function follows what OpenCV 5.0's x86 build does for the dtypes the
 twin hands it (float64 work images for uint8 batches, float32 for MM-WHS's
 float batches, float32 masks and grids, uint8 for the median and the colour
-conversion), down to its order of operations where that was found:
+conversion), and for the offline rotation of ``prep/prepare_mscmrseg.py``
+(uint8 images and masks, ``rotation_matrix_2d``), down to its order of
+operations where that was found:
 
 - geometry (``warp_affine``, ``warp_perspective``, ``remap``): float64
   images take OpenCV's fixed-point route: source coordinates in 1/1024
@@ -15,7 +17,9 @@ conversion), down to its order of operations where that was found:
   coordinates ``fma(m0, x, m1 * y + m2)`` in float32 (``fma(m0, x, m1 * y) +
   m2`` in the last ``width % 16`` columns, its scalar tail), rounded half to
   even for nearest, and ``fma``-chained lerps for linear. A 2-channel
-  float32 image takes the fixed-point route in float32.
+  float32 image takes the fixed-point route in float32. uint8 images in
+  ``warp_affine`` take the float route too (linear on pixels widened to
+  float32, rounded half to even and saturated).
 - ``resize_linear``: coefficients from ``(d + 0.5) * src / dst - 0.5`` in
   float64 (fused for float64 images), ``fma`` lerps along x then y in the
   image's dtype; 2 channels
@@ -551,17 +555,39 @@ def _float_coords(m, w: int, h: int):
     return out
 
 
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: the 2 x 3 float64
+    map rotating by ``angle`` degrees (counter-clockwise) about ``center``
+    (x, y), which OpenCV holds in float32. Bit-equal."""
+    cx, cy = (float(np.float32(c)) for c in center)
+    angle = float(angle) * (math.pi / 180)
+    alpha, beta = math.cos(angle) * scale, math.sin(angle) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy], [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
 def warp_affine(img: np.ndarray, m: np.ndarray, size, nearest: bool = False, border: int = BORDER_CONSTANT,
                 cval=0.0) -> np.ndarray:
     """``cv2.warpAffine(img, m, size, flags, borderMode=border,
     borderValue=cval)`` for a forward 2 x 3 (x, y) map. float32 images (1 or
     3 channels) are bit-equal for nearest and linear alike; float64 images
-    (the fixed-point route) are bit-equal too."""
+    (the fixed-point route) are bit-equal too. uint8 images with 1, 3 or 4
+    channels take OpenCV's float route as float32 ones do: nearest gathers at
+    the rounded float32 coordinates, linear lerps the pixels widened to
+    float32 and rounds half to even with saturation; bit-equal. 2-channel
+    uint8 images take another OpenCV route, not reproduced: they raise."""
     img = np.asarray(img)
     s3 = _as3(img)
     w, h = size
     mi = _invert_affine(m)
     cv = np.full(s3.shape[2], float(cval))
+    if s3.dtype == np.uint8:
+        if s3.shape[2] not in (1, 3, 4):
+            raise ValueError(f"warp_affine: uint8 images with {s3.shape[2]} channels are not supported")
+        x, y = _float_coords(mi, w, h)
+        if nearest:
+            return _like(_float_sample(s3, x, y, True, border, cv), img)
+        out = _float_sample(s3.astype(_F32), x, y, False, border, cv)
+        return _like(np.clip(np.rint(out), 0, 255).astype(np.uint8), img)
     if _float_route(s3):
         x, y = _float_coords(mi, w, h)
         return _like(_float_sample(s3, x, y, nearest, border, cv).astype(s3.dtype), img)

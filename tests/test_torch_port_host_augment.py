@@ -9,7 +9,9 @@ What is held, and how tightly:
 
 - ``host_image`` against ``cv2`` at the dtypes the twin hands it (float64
   work images of uint8 batches, float32 of MM-WHS's float batches, float32
-  masks and grids, uint8 for the median and the colour conversion), with
+  masks and grids, uint8 for the median and the colour conversion) and the
+  offline rotation hands it (uint8 images and masks, linear and nearest,
+  with ``rotation_matrix_2d`` against ``cv2.getRotationMatrix2D``), with
   1 and 3 channels, every interpolation and border flag the twin uses:
   **bit-equal** for the warps, the remap, the perspective matrix, the
   resizes of 1 and 3 channels, the nearest resize, the box and median
@@ -112,6 +114,58 @@ def test_warp_affine_equals_opencv(dtype, nearest, border):
             m, cval = _affine(rng, k), float(rng.uniform(0, 255))
             want = cv2.warpAffine(img, m, (w, h), flags=flag, borderMode=BORDERS[border], borderValue=(cval,) * 3)
             _same(hi.warp_affine(img, m, (w, h), nearest=nearest, border=BORDERS[border], cval=cval), want, f"{(h, w, c)} {k}")
+
+
+# the offline rotation's shapes (prep/prepare_mscmrseg.py rotate): the case
+# the uint8 route was repaired on, the training crop, and widths with
+# w % 16 != 0 (OpenCV's scalar tail of the coordinates)
+U8_SHAPES = [(64, 70), (224, 224), (37, 53), (19, 300)]
+
+
+@pytest.mark.parametrize("angle", [15.0, -15.0])
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("nearest", [False, True], ids=["linear", "nearest"])
+def test_uint8_warp_affine_equals_opencv(nearest, channels, angle):
+    """uint8 images and masks rotated about their centre as the offline
+    rotation does: bit-equal to ``cv2.warpAffine`` (constant-0 border), with
+    the matrix from ``rotation_matrix_2d``; a label mask with few values as
+    well as noise."""
+    rng = np.random.default_rng(7)
+    flag = cv2.INTER_NEAREST if nearest else cv2.INTER_LINEAR
+    for h, w in U8_SHAPES:
+        shape = (h, w, channels) if channels == 3 else (h, w)
+        noise = rng.integers(0, 256, shape, dtype=np.uint8)
+        labels = np.array([0, 85, 212, 255], np.uint8)[rng.integers(0, 4, (h // 4 + 1, w // 4 + 1))]
+        labels = np.repeat(np.repeat(labels, 4, 0), 4, 1)[:h, :w]
+        for img in (noise, labels if channels == 1 else np.repeat(labels[..., None], 3, -1)):
+            m = hi.rotation_matrix_2d((w / 2 - 0.5, h / 2 - 0.5), angle, 1.0)
+            want = cv2.warpAffine(img, m, (w, h), flags=flag, borderValue=0)
+            _same(hi.warp_affine(img, m, (w, h), nearest=nearest), want, f"{shape} {angle}")
+
+
+@pytest.mark.parametrize("border", ["constant", "replicate", "reflect101"])
+def test_uint8_warp_affine_of_four_channels_and_other_borders_equals_opencv(border):
+    rng = np.random.default_rng(8)
+    img = rng.integers(0, 256, (33, 47, 4), dtype=np.uint8)
+    for k in range(3):
+        m = _affine(rng, k)
+        for nearest, flag in ((False, cv2.INTER_LINEAR), (True, cv2.INTER_NEAREST)):
+            want = cv2.warpAffine(img, m, (50, 30), flags=flag, borderMode=BORDERS[border], borderValue=0)
+            _same(hi.warp_affine(img, m, (50, 30), nearest=nearest, border=BORDERS[border]), want, f"{k} {nearest}")
+    with pytest.raises(ValueError, match="2 channels"):
+        hi.warp_affine(img[..., :2], m, (50, 30))
+
+
+def test_rotation_matrix_equals_opencv():
+    rng = np.random.default_rng(9)
+    cases = [((w / 2 - 0.5, h / 2 - 0.5), a, 1.0) for h, w in U8_SHAPES for a in (15.0, -15.0, 0.0, 90.0)]
+    cases += [(tuple(rng.uniform(-300, 300, 2)), float(rng.uniform(-360, 360)), float(rng.uniform(0.1, 3)))
+              for _ in range(500)]
+    for center, angle, scale in cases:
+        got = hi.rotation_matrix_2d(center, angle, scale)
+        want = cv2.getRotationMatrix2D(center, angle, scale)
+        assert got.dtype == want.dtype == np.float64
+        np.testing.assert_array_equal(got, want, err_msg=f"{center} {angle} {scale}")
 
 
 def _perspective_points(rng, h, w):

@@ -1,6 +1,6 @@
 """The port never imports JAX nor the JAX package: in a fresh interpreter
-whose import system refuses ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax``
-and ``pointcloududa_tpu``, every module of ``pointcloududa_torch`` imports and
+whose import system refuses ``jax``, ``jaxlib``, ``flax``, ``optax``, ``orbax``,
+``pointcloududa_tpu`` and the repository's ``tools``, every module of ``pointcloududa_torch`` imports and
 one train step runs on the CPU; no source file of the port names one of them
 in an import; the port's own copy of the configuration module agrees with the
 JAX package's; and the port's entry points refuse to start without a card
@@ -22,7 +22,7 @@ SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
-    REFUSED = {"jax", "jaxlib", "flax", "optax", "orbax", "pointcloududa_tpu"}
+    REFUSED = {"jax", "jaxlib", "flax", "optax", "orbax", "pointcloududa_tpu", "tools"}
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -101,7 +101,7 @@ def test_port_imports_no_jax_and_steps_on_cpu():
     assert n_modules >= 40, proc.stdout
 
 
-REFUSED = {"jax", "jaxlib", "flax", "optax", "orbax", "pointcloududa_tpu"}
+REFUSED = {"jax", "jaxlib", "flax", "optax", "orbax", "pointcloududa_tpu", "tools"}
 
 
 def _imported_names(path):
@@ -127,7 +127,9 @@ def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
     for new in ("data/loader.py", "data/build.py", "train/checkpoint.py", "cli/train_mmwhs.py", "cli/train_mscmrseg.py",
                 "cli/common.py", "__main__.py", "parallel/mesh.py", "utils/logging.py", "utils/timer.py", "utils/nifti.py",
                 "ops/metrics.py", "ops/postprocess.py", "ops/clahe.py", "eval/volume.py", "eval/predictor.py",
-                "cli/evaluate_mscmrseg.py", "cli/evaluate_mmwhs.py"):
+                "cli/evaluate_mscmrseg.py", "cli/evaluate_mmwhs.py", "utils/host_native.py", "utils/tfrecord.py",
+                "prep/prepare_mscmrseg.py", "prep/prepare_mmwhs.py", "prep/make_pointclouds.py", "prep/create_datalist.py",
+                "prep/runbook.py", "prep/reproduce.py", "prep/reproduce_mmwhs.py"):
         assert os.path.join(ROOT, "pointcloududa_torch", new) in files, new
     bad = {os.path.relpath(p, ROOT): [m for m in _imported_names(p) if m.split(".")[0] in REFUSED] for p in files}
     assert not {p: m for p, m in bad.items() if m}
@@ -243,6 +245,25 @@ def test_entry_points_need_a_card_unless_told():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
 
+    # the reproduction runbooks: their evaluate stage through main, their train stage (on a small dataset, which the
+    # CLI reads before it asks for the device) through the stage runner that main drives
+    import tempfile
+
+    from pointcloududa_torch.prep import reproduce, reproduce_mmwhs
+    from test_torch_port_data import make_mmwhs_dataset, make_mscmrseg_dataset
+
+    if not torch.cuda.is_available():
+        with tempfile.TemporaryDirectory() as tmp:
+            open(os.path.join(tmp, "best_unet_model_checkpoint_x.Scr0.5"), "w").close()
+            for runbook, train, make in ((reproduce, "train_mscmrseg", make_mscmrseg_dataset),
+                                         (reproduce_mmwhs, "train_mmwhs", make_mmwhs_dataset)):
+                with pytest.raises(RuntimeError, match="device='cpu'"):
+                    runbook.main(["--stage", "evaluate", "--data-root", tmp, "--workdir", tmp])
+                root = make(os.path.join(tmp, train), n=3)
+                with pytest.raises(RuntimeError, match="device='cpu'"):
+                    runbook.run_stage(runbook.CLI + train, ["-data_dir", root, "-workdir", tmp, "-logdir", tmp, "-workers", "0"],
+                                      tmp)
+
 
 # ---- the port's own copies of the JAX package's jax-free modules ------------
 
@@ -281,6 +302,8 @@ def _code(obj):
         ("eval.volume", ["read_mmwhs_volume"]),
         # the twin's definitions that call no OpenCV; the rest call ops/host_image.py (held in test_torch_port_host_augment.py)
         ("ops.host_augment", ["_child_mats_np", "_kernel3", "someof_draw_np", "_directed_edge_kernel_np", "_perlin_mask_np"]),
+        ("utils.tfrecord", ["_read_varint", "_walk_fields", "_parse_feature", "parse_example", "read_tfrecord", "read_examples",
+                            "write_example", "write_tfrecord"]),
     ],
 )
 def test_copied_definitions_run_the_jax_packages_code(module, names):
@@ -289,6 +312,27 @@ def test_copied_definitions_run_the_jax_packages_code(module, names):
     import importlib
 
     port, ref = (importlib.import_module(f"{pkg}.{module}") for pkg in ("pointcloududa_torch", "pointcloududa_tpu"))
+    for name in names:
+        assert _code(getattr(port, name)) == _code(getattr(ref, name)), name
+
+
+@pytest.mark.parametrize(
+    "module,names",
+    [
+        ("runbook", ["find_best_checkpoint", "parse_train_args", "drive"]),
+        ("prepare_mscmrseg", ["rescale_uint8", "crop", "load_volume_zyx"]),  # the OpenCV calls: tests/test_torch_port_prep.py
+        ("prepare_mmwhs", ["decode_slice", "main"]),
+        ("make_pointclouds", ["main"]),
+        ("create_datalist", ["main"]),
+    ],
+)
+def test_copied_definitions_run_the_tools_code(module, names):
+    """The offline data layer's copies of the repository's ``tools/`` scripts
+    (``prep/``): each definition that calls no OpenCV is the tool's code,
+    statement for statement (docstrings apart)."""
+    import importlib
+
+    port, ref = (importlib.import_module(f"{pkg}.{module}") for pkg in ("pointcloududa_torch.prep", "tools"))
     for name in names:
         assert _code(getattr(port, name)) == _code(getattr(ref, name)), name
 
