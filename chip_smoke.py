@@ -210,6 +210,19 @@ into the git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       per-patient metrics finite (or -1); 64 of the made masks' clouds from
       the host library bit-equal to the numpy plain versions, ms a cloud of
       each; seconds per stage.
+  (o) the convergence smokes at full width, through their ``main``:
+      ``smoke/smoke_train.py`` at its defaults (80 steps, bs 16, 224^2, nf
+      32, bfloat16; Dice >= 0.85 at the last step) and ``smoke/smoke_uda.py
+      --d4`` (150 steps, D1+D2+D4, a pool of 12; every metric finite,
+      source Dice >= 0.5 at the last step): the Dice trajectory and the
+      probes, seconds and slices a second; each run's launches equal what
+      its steps, probes and the generator's BatchNorms give
+      (``by_path.smoke_train``, ``by_path.smoke_uda``), FPS and the
+      one-direction search 0. The quality gates
+      (``smoke/quality_gates.py``) are not run here: on the card they fail
+      at the JAX gates' seeds from the port's initial weights, as JAX's own
+      trajectories fail them on other seeds or on permuted batches (PERF.md
+      §6); ``python -m pointcloududa_torch.smoke.quality_gates`` runs them.
 
 Every check raises on failure, so any failure exits non-zero. The line
 before the last is the kernel table as JSON (each kernel's time beside its
@@ -3009,6 +3022,80 @@ def phase_reproduce(torch, dev, rec, card, per_step):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase (o): the smokes' step counts and probe cadence, from which their
+# launches are derived (the smokes' own defaults)
+SMOKE_TRAIN_STEPS, SMOKE_UDA_STEPS, SMOKE_UDA_EVERY = 80, 150, 25
+
+
+def _generator_batchnorms(cfg) -> int:
+    """The BatchNorms of ``cfg``'s generator, counted on a CPU build."""
+    from pointcloududa_torch.models.unet import TwinBatchNorm
+    from pointcloududa_torch.train.state import build_generator
+
+    return sum(isinstance(m, TwinBatchNorm) for m in build_generator(cfg).modules())
+
+
+def _step_launches(cfg, steps: int, evals_with_cloud: int = 0) -> dict:
+    """What ``steps`` train steps of ``cfg`` through the kernels launch: a
+    forward of each generator BatchNorm on the source and on the target
+    batch, a backward on the source and, where an adversary trains the
+    generator on the target, on the target too; where the point head is on,
+    the Chamfer loss and the logged target Chamfer (two fused forwards) and
+    one backward a step, and one fused forward an evaluation batch with a
+    cloud. Training rows in the compute dtype; evaluation normalises with
+    the running statistics."""
+    nb = _generator_batchnorms(cfg)
+    suffix = "_bf16" if cfg.compute_dtype == "bfloat16" else ""
+    want = {name: 0 for name in KERNELS}
+    want["bn_stats_forward" + suffix] = steps * 2 * nb
+    want["bn_stats_backward" + suffix] = steps * nb * (2 if (cfg.d1 or cfg.d2 or cfg.d4) else 1)
+    if cfg.point_head:
+        want["chamfer_forward"] = 2 * steps + evals_with_cloud
+        want["chamfer_backward"] = steps
+    return want
+
+
+def phase_smokes(torch, dev, rec, card):
+    """(o) the convergence smokes through their ``main`` at their defaults."""
+    from pointcloududa_torch.cli.common import with_kernels
+    from pointcloududa_torch.config import mscmrseg_default
+    from pointcloududa_torch.smoke import smoke_train, smoke_uda
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    dices = smoke_train.main([])
+    train_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    cfg = with_kernels(mscmrseg_default(bs=16, compute_dtype="bfloat16"))
+    want = _step_launches(cfg, SMOKE_TRAIN_STEPS)
+    _require(counts == want, f"smoke_train launched {counts}, derived {want}")
+    _require(dices[-1][0] == SMOKE_TRAIN_STEPS - 1 and dices[-1][1] >= 0.85, f"smoke_train's last Dice {dices[-1]}")
+    _record_launches(rec, "smoke_train", counts, {k for k, v in want.items() if v})
+    print(f"  smoke_train (bs 16, 224^2, nf 32, bf16, {SMOKE_TRAIN_STEPS} steps): Dice by step "
+          + ", ".join(f"{i} {d:.4f}" for i, d in dices)
+          + f"; {train_s:.1f} s, {SMOKE_TRAIN_STEPS * 16 / train_s:.0f} slices/s with the host's batches and the state's "
+          f"creation; launches {counts}, as derived; on {card}")
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    probes = smoke_uda.main(["--d4"])
+    uda_s = time.perf_counter() - t0
+    counts = _launch_counts()
+    cfg = with_kernels(mscmrseg_default(bs=16, d1=True, d2=True, d4=True, compute_dtype="bfloat16"))
+    n_probes = len(range(0, SMOKE_UDA_STEPS, SMOKE_UDA_EVERY)) + ((SMOKE_UDA_STEPS - 1) % SMOKE_UDA_EVERY > 0)
+    want = _step_launches(cfg, SMOKE_UDA_STEPS, evals_with_cloud=n_probes)
+    _require(counts == want, f"smoke_uda launched {counts}, derived {want}")
+    _require(len(probes) == n_probes and all(np.isfinite(v) for p in probes for v in p.values()), "smoke_uda's probes")
+    _require(probes[-1]["seg_dice"] >= 0.5, f"smoke_uda's last source Dice {probes[-1]['seg_dice']}")
+    _record_launches(rec, "smoke_uda", counts, {k for k, v in want.items() if v})
+    for p in probes:
+        print(f"  smoke_uda step {p['step']:3d}: src_dice {p['seg_dice']:.4f} tgt_dice {p['tgt_dice']:.4f} seg_loss "
+              f"{p['seg_loss']:.4f} adv {p['adv_loss']:.4f} d1 {p['dis1_acc1']:.2f}/{p['dis1_acc2']:.2f} "
+              f"d2 {p['dis2_acc1']:.2f}/{p['dis2_acc2']:.2f} d4 {p['dis4_acc1']:.2f}/{p['dis4_acc2']:.2f}")
+    print(f"  smoke_uda --d4 (bs 16, 224^2, bf16, D1+D2+D4, pool 12, {SMOKE_UDA_STEPS} steps): {uda_s:.1f} s with the "
+          f"pool's 384 host clouds; launches {counts}, as derived; on {card}")
+
+
 def main() -> int:
     import torch
 
@@ -3106,6 +3193,11 @@ def main() -> int:
         phase_reproduce(torch, dev, rec, smi, per_step)
         seconds["n"] = time.perf_counter() - t0
         print(f"  phase (n): {seconds['n']:.1f} s")
+        print("(o) the convergence smokes: smoke_train (80 steps, bs 16, 224^2, bf16) and smoke_uda --d4 (150 steps)")
+        t0 = time.perf_counter()
+        phase_smokes(torch, dev, rec, smi)
+        seconds["o"] = time.perf_counter() - t0
+        print(f"  phase (o): {seconds['o']:.1f} s")
     finally:
         shutil.rmtree(keep, ignore_errors=True)
         shutil.rmtree(tests, ignore_errors=True)

@@ -129,7 +129,8 @@ def test_no_source_file_of_the_port_imports_jax_or_the_jax_package():
                 "ops/metrics.py", "ops/postprocess.py", "ops/clahe.py", "eval/volume.py", "eval/predictor.py",
                 "cli/evaluate_mscmrseg.py", "cli/evaluate_mmwhs.py", "utils/host_native.py", "utils/tfrecord.py",
                 "prep/prepare_mscmrseg.py", "prep/prepare_mmwhs.py", "prep/make_pointclouds.py", "prep/create_datalist.py",
-                "prep/runbook.py", "prep/reproduce.py", "prep/reproduce_mmwhs.py"):
+                "prep/runbook.py", "prep/reproduce.py", "prep/reproduce_mmwhs.py", "smoke/smoke_train.py",
+                "smoke/smoke_uda.py", "smoke/calibrate_d4.py", "smoke/quality_gates.py"):
         assert os.path.join(ROOT, "pointcloududa_torch", new) in files, new
     bad = {os.path.relpath(p, ROOT): [m for m in _imported_names(p) if m.split(".")[0] in REFUSED] for p in files}
     assert not {p: m for p, m in bad.items() if m}
@@ -244,6 +245,15 @@ def test_entry_points_need_a_card_unless_told():
                      lambda: evaluate_mmwhs.main(["-weight_dir", "no-such-file"])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
+
+    # the convergence smokes, the D4 calibration and the quality gates: each main asks for the card before it trains
+    from pointcloududa_torch.smoke import calibrate_d4, quality_gates, smoke_train, smoke_uda
+
+    if not torch.cuda.is_available():
+        for main, argv in ((smoke_train.main, []), (smoke_uda.main, ["--d4"]), (calibrate_d4.main, []),
+                           (quality_gates.main, [])):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                main(argv)
 
     # the reproduction runbooks: their evaluate stage through main, their train stage (on a small dataset, which the
     # CLI reads before it asks for the device) through the stage runner that main drives
