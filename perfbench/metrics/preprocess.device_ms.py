@@ -1,0 +1,7 @@
+"""Device milliseconds an iteration of the operations launched inside
+``bench.preprocess`` (the device augmentation, cloud regeneration,
+normalisation, crop and one-hot), over the traced slice."""
+
+
+def read(run):
+    return run.trace["preprocess_device_ms"] if run.trace else None
