@@ -148,8 +148,8 @@ into the git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       five times in float32 and five in bfloat16 in this call (median step
       time, peak memory, the BatchNorm inputs bf16 at phase (b)'s shapes,
       the bf16 BN kernels launched 32 times a step and the f32 ones never),
-      then once more under the profiler (device time by kernel kind and the
-      device's idle share);
+      then once more under the profiler (device time by kernel kind, and
+      the traced window on the host clock);
       one bf16 step of each, kernels against plain from identical weights,
       at 5x the f32 tolerance (25x for ``d4_loss``); the bf16 eval step
       (f32 logits); ``cli.train_mscmrseg.main`` at its default dtype
@@ -1301,14 +1301,16 @@ def _fabricate_ct_test(root: str, seed: int) -> int:
 
 
 def _read_scalars(logdir: str) -> dict:
-    """{epoch: {scalar: value}} of the ``metrics.jsonl`` files under ``logdir``."""
+    """{epoch: {scalar: value}} of the ``metrics.jsonl`` files under ``logdir``,
+    but the ``timing/`` host milliseconds, which no two runs share."""
     recs: dict = {}
     for folder, _, files in os.walk(logdir):
         if "metrics.jsonl" in files:
             with open(os.path.join(folder, "metrics.jsonl")) as f:
                 for line in f:
                     r = json.loads(line)
-                    recs.setdefault(r["step"], {}).update({k: v for k, v in r.items() if k not in ("step", "time")})
+                    recs.setdefault(r["step"], {}).update(
+                        {k: v for k, v in r.items() if k not in ("step", "time") and not k.startswith("timing/")})
     return recs
 
 
@@ -1632,6 +1634,8 @@ def _trace_calls(torch, fn) -> dict:
     no runtime call (the profiler saw nothing: not measured)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from pointcloududa_torch.utils.timer import SPAN_NAMES
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         with record_function("traced_call"):
@@ -1648,8 +1652,9 @@ def _trace_calls(torch, fn) -> dict:
             calls[e.name] = calls.get(e.name, 0) + 1
     if not calls:
         return None
-    # the record_function's own range shows on the device too: not a kernel
-    kernels = [e for e in events if e.device_type.name == "CUDA" and lo <= e.time_range.start and e.name != "traced_call"]
+    # a record_function's range (this one, the program's spans) shows on the device too: not a kernel
+    ranges = ("traced_call",) + SPAN_NAMES
+    kernels = [e for e in events if e.device_type.name == "CUDA" and lo <= e.time_range.start and e.name not in ranges]
     syncing = {k: v for k, v in calls.items() if k in SYNCING_CALLS}
     _require(not syncing, f"synchronising CUDA runtime calls in one call: {syncing}")
     by_name: dict = {}
@@ -2130,9 +2135,11 @@ def _bf16_tol_ok(key: str, got: float, want: float) -> bool:
 def _step_profile(torch, fn) -> dict | None:
     """Device time of one call of ``fn`` by kernel kind (``KERNEL_KINDS``),
     from a ``torch.profiler`` trace: per kind ms and kernel count, the sum,
-    the traced window on the host clock (it ends in a synchronize) and the
-    device's idle share of it. ``None`` where the trace holds no kernel."""
+    and the traced window on the host clock (it ends in a synchronize).
+    ``None`` where the trace holds no kernel."""
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pointcloududa_torch.utils.timer import SPAN_NAMES
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2141,7 +2148,7 @@ def _step_profile(torch, fn) -> dict | None:
             torch.cuda.synchronize()
     events = prof.events()
     window = [e for e in events if e.name == "profiled_step" and e.device_type.name == "CPU"]
-    kernels = [e for e in events if e.device_type.name == "CUDA" and e.name != "profiled_step"]
+    kernels = [e for e in events if e.device_type.name == "CUDA" and e.name not in ("profiled_step",) + SPAN_NAMES]
     if not window or not kernels:
         return None
     kinds: dict = {}
@@ -2149,18 +2156,16 @@ def _step_profile(torch, fn) -> dict | None:
         kind = next((k for k, keys in KERNEL_KINDS if any(key in e.name for key in keys)), "other")
         n, t = kinds.get(kind, (0, 0.0))
         kinds[kind] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
-    busy = sum(t for _, t in kinds.values())
-    host = window[0].time_range.elapsed_us() / 1e3
-    return dict(kinds=dict(sorted(kinds.items(), key=lambda kv: -kv[1][1])), kernel_ms=busy, window_ms=host,
-                idle=1.0 - busy / host, kernels=len(kernels))
+    return dict(kinds=dict(sorted(kinds.items(), key=lambda kv: -kv[1][1])), kernel_ms=sum(t for _, t in kinds.values()),
+                window_ms=window[0].time_range.elapsed_us() / 1e3,
+                kernels=len(kernels))
 
 
 def _profile_text(prof) -> str:
     if prof is None:
         return "the profiler saw no kernel (not measured)"
     kinds = "; ".join(f"{k} {t:.2f} ms ({t / prof['kernel_ms']:.1%}, {n} kernels)" for k, (n, t) in prof["kinds"].items())
-    return (f"{prof['kernel_ms']:.2f} ms of kernels ({prof['kernels']}) in a {prof['window_ms']:.2f} ms window, the device "
-            f"idle {prof['idle']:.1%} of it: {kinds}")
+    return f"{prof['kernel_ms']:.2f} ms of kernels ({prof['kernels']}) in a {prof['window_ms']:.2f} ms window: {kinds}"
 
 
 def _share(a, b) -> float:

@@ -30,6 +30,7 @@ import torch
 from pointcloududa_torch.data.pointcloud import mask_to_point_cloud
 from pointcloududa_torch.data.sampler import RingSampler
 from pointcloududa_torch.parallel import pad_batch
+from pointcloududa_torch.utils.timer import QUEUE_WAIT, trace_annotation
 
 
 class BatchAssembler:
@@ -208,6 +209,7 @@ class DevicePrefetcher:
         self._place = place
         self._depth = depth
         self._device = torch.device(device) if device is not None else None
+        self._wait = trace_annotation(QUEUE_WAIT)
 
     def __call__(self, it: Iterator) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=self._depth)
@@ -236,16 +238,18 @@ class DevicePrefetcher:
         t = threading.Thread(target=feed, daemon=True)
         t.start()
         while True:
-            item = q.get()
-            if item is self._END:
-                if err:
-                    raise err[0]
-                return
-            placed, ready = item
-            if ready is not None:
-                current = torch.cuda.current_stream(self._device)
-                current.wait_event(ready)
-                for v in placed.values() if isinstance(placed, dict) else ():
-                    if isinstance(v, torch.Tensor) and v.is_cuda:
-                        v.record_stream(current)
+            with self._wait as wait:  # the consumer starved of batches; its calls count the batches handed out
+                item = q.get()
+                if item is self._END:
+                    wait.discard()
+                    if err:
+                        raise err[0]
+                    return
+                placed, ready = item
+                if ready is not None:
+                    current = torch.cuda.current_stream(self._device)
+                    current.wait_event(ready)
+                    for v in placed.values() if isinstance(placed, dict) else ():
+                        if isinstance(v, torch.Tensor) and v.is_cuda:
+                            v.record_stream(current)
             yield placed

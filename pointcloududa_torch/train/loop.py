@@ -44,6 +44,7 @@ from pointcloududa_torch.train.state import create_train_state, get_generator_lr
 from pointcloududa_torch.train.step import make_eval_step, make_train_step
 from pointcloududa_torch.utils.device import resolve_device
 from pointcloududa_torch.utils.logging import MetricWriter
+from pointcloududa_torch.utils import timer
 from pointcloududa_torch.utils.timer import trace_annotation
 
 
@@ -136,32 +137,43 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
             starts = draw_starts(mask, generator)
         return masks_to_point_clouds_from_starts(mask, starts, impl=fps_impl) / 255.0
 
+    span = trace_annotation(timer.PREPROCESS)
+    span_augment, span_clouds, span_finish = map(trace_annotation, timer.PREPROCESS_PARTS)
+
     @torch.no_grad()
     def process_train(generator: Optional[torch.Generator], raw, with_vert_t: bool = True, draws=None,
                       host_generator: Optional[torch.Generator] = None):
-        raw = tensors(raw)
-        draws = draws or {}
-        vert_t_on = cfg.vert_t_metric and with_vert_t
-        img_s, mask_s = aug_pair(generator, host_generator, raw["img_s"], raw["mask_s"].to(torch.int32), draws.get("aug_s"))
-        mask_t = raw["mask_t"].to(torch.int32) if (regen_verts and "mask_t" in raw) else None
-        img_t, mask_t = aug_pair(generator, host_generator, raw["img_t"], mask_t, draws.get("aug_t"))
-        batch = {
-            "img_s": crop(norm_img(img_s)),
-            "mask_s": one_hot(crop(mask_s)),
-            "img_t": crop(norm_img(img_t)),
-        }
-        if regen_verts and mask_t is not None:
-            batch["vert_s"] = cloud(generator, mask_s, draws.get("starts_s"))
-            if vert_t_on:  # target clouds feed a logged-only metric
-                batch["vert_t"] = cloud(generator, mask_t, draws.get("starts_t"))
-        else:
-            if "vert_s" in raw:
-                batch["vert_s"] = raw["vert_s"].to(torch.float32) / 255.0
-            if "vert_t" in raw and vert_t_on:
-                batch["vert_t"] = raw["vert_t"].to(torch.float32) / 255.0
-        if "sample_mask" in raw:
-            batch["sample_mask"] = raw["sample_mask"].to(torch.float32)
-        return batch
+        with span:
+            raw = tensors(raw)
+            draws = draws or {}
+            vert_t_on = cfg.vert_t_metric and with_vert_t
+            with span_augment:
+                img_s, mask_s = aug_pair(generator, host_generator, raw["img_s"], raw["mask_s"].to(torch.int32),
+                                         draws.get("aug_s"))
+                mask_t = raw["mask_t"].to(torch.int32) if (regen_verts and "mask_t" in raw) else None
+                img_t, mask_t = aug_pair(generator, host_generator, raw["img_t"], mask_t, draws.get("aug_t"))
+            clouds = {}
+            if regen_verts and mask_t is not None:
+                with span_clouds:
+                    clouds["vert_s"] = cloud(generator, mask_s, draws.get("starts_s"))
+                    if vert_t_on:  # target clouds feed a logged-only metric
+                        clouds["vert_t"] = cloud(generator, mask_t, draws.get("starts_t"))
+            with span_finish:
+                batch = {
+                    "img_s": crop(norm_img(img_s)),
+                    "mask_s": one_hot(crop(mask_s)),
+                    "img_t": crop(norm_img(img_t)),
+                }
+                if regen_verts and mask_t is not None:
+                    batch.update(clouds)
+                else:
+                    if "vert_s" in raw:
+                        batch["vert_s"] = raw["vert_s"].to(torch.float32) / 255.0
+                    if "vert_t" in raw and vert_t_on:
+                        batch["vert_t"] = raw["vert_t"].to(torch.float32) / 255.0
+                if "sample_mask" in raw:
+                    batch["sample_mask"] = raw["sample_mask"].to(torch.float32)
+            return batch
 
     @torch.no_grad()
     def process_eval(raw):
@@ -256,6 +268,7 @@ class UDATrainer:
         self.pre_train = make_device_preprocess(cfg, train=True, device_augment=device_augment, device=self.device, mesh=mesh)
         self.pre_eval = make_device_preprocess(cfg, train=False, device_augment=False, device=self.device, mesh=mesh)
         self.place = place if place is not None else (lambda b: to_device(b, self.device))
+        self._iteration_span = trace_annotation(timer.ITERATION, iteration=True)
         self._aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
         # the heavy and medium pipelines' orders and SomeOf members, drawn on
         # the host so that it never waits for the device to learn them
@@ -298,15 +311,21 @@ class UDATrainer:
         prefetch = DevicePrefetcher(place=self.place, depth=2, device=self.device)
         padder = BatchPadder(self._pad_multiple)
         every = self.cfg.vert_t_every
-        for raw in prefetch(map(padder, self.train_iter.epoch())):
-            with trace_annotation("uda_train_step"):
+        batches = prefetch(map(padder, self.train_iter.epoch()))
+        timer.reset_spans()  # timer.per_iteration_ms reads this epoch's spans
+        while True:
+            with self._iteration_span as turn:
+                raw = next(batches, None)  # the wait is the prefetcher's uda.queue_wait
+                if raw is None:
+                    turn.discard()  # the stream's end: no iteration
+                    break
                 # cadence of the logged-only target chamfer (vert_t_every):
                 # off-cadence steps drop vert_t, and with it the target
                 # cloud's regeneration and the diagnostic's launch
                 with_vt = every <= 1 or step % every == 0
                 batch = self.pre_train(self._aug_gen, raw, with_vert_t=with_vt, host_generator=self._aug_host_gen)
                 self.state, metrics = self.train_step(self.state, batch)
-            metrics_acc.append(metrics)  # 0-d tensors on the device: nothing is read here
+                metrics_acc.append(metrics)  # 0-d tensors on the device: nothing is read here
             step += 1
         # key union: ver_t_loss is present only on cadence steps; its epoch
         # mean averages the sampled steps
@@ -471,11 +490,14 @@ class UDATrainer:
         for epoch in range(start_epoch, n_epochs + 1):
             e0 = time.perf_counter()
             tr = self.train_epoch()
+            timing = timer.per_iteration_ms()
             vr = self.validate()
             self.print_epoch_result(tr, vr, epoch)
             self.writer.scalars(epoch, tr, prefix="train/")
             self.writer.scalars(epoch, vr, prefix="valid/")
             self.writer.scalars(epoch, {"lr": get_generator_lr(self.state)}, prefix="opt/")
+            if timing:  # host ms an iteration of each span, over the epoch's iterations that no profiler recorded
+                self.writer.scalars(epoch, timing, prefix="timing/")
 
             if vr["val_lge_dice"] > self.best["val_lge_dice"]:
                 self.best = {

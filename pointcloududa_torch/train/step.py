@@ -35,9 +35,14 @@ from pointcloududa_torch.config import UDAConfig
 from pointcloududa_torch.ops import chamfer_kernel, losses
 from pointcloududa_torch.parallel import collectives
 from pointcloududa_torch.train.state import UDATrainState
+from pointcloududa_torch.utils import timer
+from pointcloududa_torch.utils.timer import trace_annotation
 
 SOURCE_LABEL = 1.0  # reference train_mscmrseg.py:160-161
 TARGET_LABEL = 0.0
+
+# the step's spans (utils/timer.py): the generator's phases, the seg-dice block, each discriminator's phase
+_SPAN = {name: trace_annotation(name) for name in (timer.STEP,) + timer.STEP_PARTS}
 
 
 def _chamfer(cfg: UDAConfig):
@@ -85,14 +90,19 @@ def discriminator_phase(forward, opt, src, tgt, sample_mask, k: int) -> Dict[str
     then target, outputs (the order D4's BatchNorm statistics see them), BCE
     towards the source and target labels, one update by ``opt``. Returns the
     discriminator's metrics."""
-    o_s, o_t = forward(src), forward(tgt)
-    loss = losses.bce_with_logits(o_s, SOURCE_LABEL, sample_mask) + losses.bce_with_logits(
-        o_t, TARGET_LABEL, sample_mask
-    )
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    collectives.average_grads(p for group in opt.param_groups for p in group["params"])
-    opt.step()
+    update = _SPAN[f"uda.step.d{k}.update"]
+    with _SPAN[f"uda.step.d{k}.forward"]:
+        o_s, o_t = forward(src), forward(tgt)
+        loss = losses.bce_with_logits(o_s, SOURCE_LABEL, sample_mask) + losses.bce_with_logits(
+            o_t, TARGET_LABEL, sample_mask
+        )
+    with update:
+        opt.zero_grad(set_to_none=True)
+    with _SPAN[f"uda.step.d{k}.backward"]:
+        loss.backward()
+    with update:
+        collectives.average_grads(p for group in opt.param_groups for p in group["params"])
+        opt.step()
     return {
         f"dis{k}_acc1": _disc_accuracy(o_s, True, sample_mask),
         f"dis{k}_acc2": _disc_accuracy(o_t, False, sample_mask),
@@ -114,82 +124,87 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
     discs = [d for d in (d1, d2, d4) if d is not None]
 
     def step(state: UDATrainState, batch):
-        b = _tensors(batch, device)
-        img_s, mask_s, img_t = b["img_s"], b["mask_s"].to(torch.float32), b["img_t"]
-        vert_s, vert_t = b.get("vert_s"), b.get("vert_t")
-        sm = b.get("sample_mask")
-        chamfer_m = chamfer if sm is None else partial(losses.chamfer_loss, sample_mask=sm)
-        rng = state.generator
-        for m in (gen, *discs):
-            m.train()
+        with _SPAN["uda.step"]:
+            b = _tensors(batch, device)
+            img_s, mask_s, img_t = b["img_s"], b["mask_s"].to(torch.float32), b["img_t"]
+            vert_s, vert_t = b.get("vert_s"), b.get("vert_t")
+            sm = b.get("sample_mask")
+            chamfer_m = chamfer if sm is None else partial(losses.chamfer_loss, sample_mask=sm)
+            rng = state.generator
+            for m in (gen, *discs):
+                m.train()
 
-        # ---- phases 1+2: generator loss (supervised + adversarial) -------
-        o_s, _, pv_s = gen(img_s, rng)
-        probs_s = _activate(cfg, o_s)
-        l1, l2 = _supervised_loss(cfg, probs_s, mask_s, sm)
-        metrics = {}
-        sup = l1 + l2
-        if cfg.point_head:
-            l3 = chamfer_m(pv_s, vert_s)
-            metrics["ver_s_loss"] = l3
-            sup = sup + cfg.wp * l3
-        unc_s = _entropy_map(cfg, probs_s)
-        ent_s = losses.masked_mean(torch.sum(unc_s, dim=-1), sm)
-        if cfg.etpls and cfg.d2:
-            sup = sup + ent_s  # train_mmwhs.py:227-230
+            # ---- phases 1+2: generator loss (supervised + adversarial) ---
+            with _SPAN["uda.step.gen_forward"]:
+                o_s, _, pv_s = gen(img_s, rng)
+                probs_s = _activate(cfg, o_s)
+                l1, l2 = _supervised_loss(cfg, probs_s, mask_s, sm)
+                metrics = {}
+                sup = l1 + l2
+                if cfg.point_head:
+                    l3 = chamfer_m(pv_s, vert_s)
+                    metrics["ver_s_loss"] = l3
+                    sup = sup + cfg.wp * l3
+                unc_s = _entropy_map(cfg, probs_s)
+                ent_s = losses.masked_mean(torch.sum(unc_s, dim=-1), sm)
+                if cfg.etpls and cfg.d2:
+                    sup = sup + ent_s  # train_mmwhs.py:227-230
 
-        o_t, _, pv_t = gen(img_t, rng)
-        probs_t = _activate(cfg, o_t)
-        unc_t = _entropy_map(cfg, probs_t)
-        ent_t = losses.masked_mean(torch.sum(unc_t, dim=-1), sm)
-        adv = ent_t if cfg.Tetpls else torch.zeros((), device=device)
-        if cfg.point_head and vert_t is not None:
-            # logged only, never backpropagated (train_mscmrseg.py:230-231)
-            with torch.no_grad():
-                metrics["ver_t_loss"] = chamfer_m(pv_t.detach(), vert_t)
-        if cfg.d2:
-            adv = adv + cfg.w2 * cfg.dr * losses.bce_with_logits(d2(unc_t), SOURCE_LABEL, sm)
-        if cfg.d4:
-            out4, _, _ = d4(pv_t, rng)
-            adv = adv + cfg.w4 * cfg.dr * losses.bce_with_logits(out4, SOURCE_LABEL, sm)
-        if cfg.d1:
-            out1 = d1(probs_t if cfg.d1_on_probs else o_t)
-            adv = adv + cfg.w1 * cfg.dr * losses.bce_with_logits(out1, SOURCE_LABEL, sm)
-        gen_total = sup + adv
-        gen_opt.zero_grad(set_to_none=True)
-        gen_total.backward(inputs=gen_params)  # the discriminators take no gradient
-        if cfg.sgd:
-            # a parameter no output depends on (the encoder's unused conv1_1)
-            # has no gradient, and torch's SGD would skip it; the reference
-            # numerics decay every parameter, so give it a zero gradient and
-            # let weight decay and momentum act on it too
-            for p in gen_params:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
-        gen_opt.step()
+                o_t, _, pv_t = gen(img_t, rng)
+                probs_t = _activate(cfg, o_t)
+                unc_t = _entropy_map(cfg, probs_t)
+                ent_t = losses.masked_mean(torch.sum(unc_t, dim=-1), sm)
+                adv = ent_t if cfg.Tetpls else torch.zeros((), device=device)
+                if cfg.point_head and vert_t is not None:
+                    # logged only, never backpropagated (train_mscmrseg.py:230-231)
+                    with torch.no_grad():
+                        metrics["ver_t_loss"] = chamfer_m(pv_t.detach(), vert_t)
+                if cfg.d2:
+                    adv = adv + cfg.w2 * cfg.dr * losses.bce_with_logits(d2(unc_t), SOURCE_LABEL, sm)
+                if cfg.d4:
+                    out4, _, _ = d4(pv_t, rng)
+                    adv = adv + cfg.w4 * cfg.dr * losses.bce_with_logits(out4, SOURCE_LABEL, sm)
+                if cfg.d1:
+                    out1 = d1(probs_t if cfg.d1_on_probs else o_t)
+                    adv = adv + cfg.w1 * cfg.dr * losses.bce_with_logits(out1, SOURCE_LABEL, sm)
+                gen_total = sup + adv
+            with _SPAN["uda.step.gen_update"]:
+                gen_opt.zero_grad(set_to_none=True)
+            with _SPAN["uda.step.gen_backward"]:
+                gen_total.backward(inputs=gen_params)  # the discriminators take no gradient
+            with _SPAN["uda.step.gen_update"]:
+                if cfg.sgd:
+                    # a parameter no output depends on (the encoder's unused conv1_1)
+                    # has no gradient, and torch's SGD would skip it; the reference
+                    # numerics decay every parameter, so give it a zero gradient and
+                    # let weight decay and momentum act on it too
+                    for p in gen_params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
+                gen_opt.step()
 
-        metrics.update(
-            seg_loss=l1 + l2, adv_loss=adv, gen_total_loss=gen_total,
-            entropy_loss=ent_s, entropy_loss_T=ent_t,
-        )
-        with torch.no_grad():
-            hard = (o_s == torch.amax(o_s, dim=-1, keepdim=True)).to(torch.float32)
-            metrics["seg_dice"] = losses.dice_coef_multilabel(mask_s, hard, num_labels=4, sample_mask=sm)
+            metrics.update(
+                seg_loss=l1 + l2, adv_loss=adv, gen_total_loss=gen_total,
+                entropy_loss=ent_s, entropy_loss_T=ent_t,
+            )
+            with _SPAN["uda.step.metrics"], torch.no_grad():
+                hard = (o_s == torch.amax(o_s, dim=-1, keepdim=True)).to(torch.float32)
+                metrics["seg_dice"] = losses.dice_coef_multilabel(mask_s, hard, num_labels=4, sample_mask=sm)
 
-        # ---- phases 3+4: discriminators on detached outputs --------------
-        if cfg.d1:
-            src_in, tgt_in = (probs_s, probs_t) if cfg.d1_on_probs else (o_s, o_t)
-            metrics.update(discriminator_phase(d1, d1_opt, src_in.detach(), tgt_in.detach(), sm, 1))
-        if cfg.d2:
-            metrics.update(discriminator_phase(d2, d2_opt, unc_s.detach(), unc_t.detach(), sm, 2))
-        if cfg.d4:
-            # stats order: target (phase 2) -> source -> target
-            d4_logits = lambda p: d4(p, rng)[0]  # noqa: E731
-            metrics.update(discriminator_phase(d4_logits, d4_opt, pv_s.detach(), pv_t.detach(), sm, 4))
+            # ---- phases 3+4: discriminators on detached outputs ----------
+            if cfg.d1:
+                src_in, tgt_in = (probs_s, probs_t) if cfg.d1_on_probs else (o_s, o_t)
+                metrics.update(discriminator_phase(d1, d1_opt, src_in.detach(), tgt_in.detach(), sm, 1))
+            if cfg.d2:
+                metrics.update(discriminator_phase(d2, d2_opt, unc_s.detach(), unc_t.detach(), sm, 2))
+            if cfg.d4:
+                # stats order: target (phase 2) -> source -> target
+                d4_logits = lambda p: d4(p, rng)[0]  # noqa: E731
+                metrics.update(discriminator_phase(d4_logits, d4_opt, pv_s.detach(), pv_t.detach(), sm, 4))
 
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     return collectives.within(mesh, step)
 

@@ -57,7 +57,9 @@ def _scalars(logdir):
             with open(os.path.join(folder, "metrics.jsonl")) as f:
                 for line in f:
                     r = json.loads(line)
-                    recs.setdefault(r["step"], {}).update({k: v for k, v in r.items() if k not in ("step", "time")})
+                    # timing/: host milliseconds of the trainer's spans, which no two runs share
+                    recs.setdefault(r["step"], {}).update(
+                        {k: v for k, v in r.items() if k not in ("step", "time") and not k.startswith("timing/")})
     return recs
 
 
