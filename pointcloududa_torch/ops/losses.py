@@ -67,11 +67,13 @@ def bce_from_probs(
 def bce_with_logits(
     logits: torch.Tensor, targets, sample_mask: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Stable BCE on logits; ``targets`` may be a scalar domain label."""
+    """Stable BCE on logits; ``targets`` may be a scalar domain label, which
+    is filled on the logits' device (no copy from the host, so the loss can
+    be captured in a CUDA graph)."""
     logits = logits.to(torch.float32)
-    targets = torch.broadcast_to(
-        torch.as_tensor(targets, dtype=torch.float32, device=logits.device), logits.shape
-    )
+    if isinstance(targets, (int, float)):
+        targets = torch.full((), targets, dtype=torch.float32, device=logits.device)
+    targets = torch.broadcast_to(torch.as_tensor(targets, dtype=torch.float32, device=logits.device), logits.shape)
     loss = torch.clamp_min(logits, 0.0) - logits * targets + torch.log1p(torch.exp(-torch.abs(logits)))
     return masked_mean(loss, sample_mask)
 

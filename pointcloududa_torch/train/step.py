@@ -12,8 +12,10 @@
 
 BatchNorm running statistics are updated in the reference's order: the
 generator sees source then target; D4 sees target (phase 2), source, then
-target (phases 3-4). Batches are NHWC (``img_s``, one-hot ``mask_s``,
-``img_t``) with (B, 300, 3) clouds (``vert_s``, ``vert_t``) and an optional
+target (phases 3-4). On the card, phases 3-5 are replayed from one CUDA graph
+once their inputs' shapes have been seen (``train/disc_graph.py`` says when,
+and why the arithmetic is the eager block's). Batches are NHWC (``img_s``,
+one-hot ``mask_s``, ``img_t``) with (B, 300, 3) clouds (``vert_s``, ``vert_t``) and an optional
 (B,) ``sample_mask``; numpy arrays or tensors. Metrics are 0-d tensors on the
 models' device, under the JAX step's keys.
 
@@ -34,6 +36,7 @@ import torch
 from pointcloududa_torch.config import UDAConfig
 from pointcloududa_torch.ops import chamfer_kernel, losses
 from pointcloududa_torch.parallel import collectives
+from pointcloududa_torch.train.disc_graph import DiscriminatorGraphs
 from pointcloududa_torch.train.state import UDATrainState
 from pointcloududa_torch.utils import timer
 from pointcloududa_torch.utils.timer import trace_annotation
@@ -115,7 +118,8 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
     = (gen, d1, d2, d4) (None where disabled) in place with ``optimizers``;
     ``state`` supplies the step count and the dropout generator. ``mesh``: the
     data mesh whose global batch the step trains on (``None``: this
-    process's batch)."""
+    process's batch). ``step.disc_graphs`` is the step's
+    :class:`DiscriminatorGraphs`."""
     gen, d1, d2, d4 = models
     gen_opt, d1_opt, d2_opt, d4_opt = optimizers
     chamfer = _chamfer(cfg)
@@ -123,89 +127,116 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
     gen_params = list(gen.parameters())
     discs = [d for d in (d1, d2, d4) if d is not None]
 
+    def disc_block(x, rng):
+        """Phases 3-5 on the detached outputs ``x``, D1, D2, D4 in turn."""
+        sm = x.get("sample_mask")
+        metrics = {}
+        if cfg.d1:
+            metrics.update(discriminator_phase(d1, d1_opt, x["d1_src"], x["d1_tgt"], sm, 1))
+        if cfg.d2:
+            metrics.update(discriminator_phase(d2, d2_opt, x["d2_src"], x["d2_tgt"], sm, 2))
+        if cfg.d4:
+            # stats order: target (phase 2) -> source -> target
+            d4_logits = lambda p: d4(p, rng)[0]  # noqa: E731
+            metrics.update(discriminator_phase(d4_logits, d4_opt, x["d4_src"], x["d4_tgt"], sm, 4))
+        return metrics
+
+    disc_graphs = DiscriminatorGraphs(disc_block, (d1_opt, d2_opt, d4_opt), device)
+
+    def generator_phases(b, rng):
+        """Phases 1+2 and the generator's update on the batch ``b``: the
+        metrics, detached, and the detached outputs phases 3-5 take. The
+        autograd graph dies with this frame, its accumulators of the
+        discriminators' gradients among its nodes: a capture of phases 3-5
+        makes its own on the capture's stream (an older one would
+        synchronise with the stream it was made on)."""
+        img_s, mask_s, img_t = b["img_s"], b["mask_s"].to(torch.float32), b["img_t"]
+        vert_s, vert_t = b.get("vert_s"), b.get("vert_t")
+        sm = b.get("sample_mask")
+        chamfer_m = chamfer if sm is None else partial(losses.chamfer_loss, sample_mask=sm)
+
+        # ---- phases 1+2: generator loss (supervised + adversarial) ---
+        with _SPAN["uda.step.gen_forward"]:
+            o_s, _, pv_s = gen(img_s, rng)
+            probs_s = _activate(cfg, o_s)
+            l1, l2 = _supervised_loss(cfg, probs_s, mask_s, sm)
+            metrics = {}
+            sup = l1 + l2
+            if cfg.point_head:
+                l3 = chamfer_m(pv_s, vert_s)
+                metrics["ver_s_loss"] = l3
+                sup = sup + cfg.wp * l3
+            unc_s = _entropy_map(cfg, probs_s)
+            ent_s = losses.masked_mean(torch.sum(unc_s, dim=-1), sm)
+            if cfg.etpls and cfg.d2:
+                sup = sup + ent_s  # train_mmwhs.py:227-230
+
+            o_t, _, pv_t = gen(img_t, rng)
+            probs_t = _activate(cfg, o_t)
+            unc_t = _entropy_map(cfg, probs_t)
+            ent_t = losses.masked_mean(torch.sum(unc_t, dim=-1), sm)
+            adv = ent_t if cfg.Tetpls else torch.zeros((), device=device)
+            if cfg.point_head and vert_t is not None:
+                # logged only, never backpropagated (train_mscmrseg.py:230-231)
+                with torch.no_grad():
+                    metrics["ver_t_loss"] = chamfer_m(pv_t.detach(), vert_t)
+            if cfg.d2:
+                adv = adv + cfg.w2 * cfg.dr * losses.bce_with_logits(d2(unc_t), SOURCE_LABEL, sm)
+            if cfg.d4:
+                out4, _, _ = d4(pv_t, rng)
+                adv = adv + cfg.w4 * cfg.dr * losses.bce_with_logits(out4, SOURCE_LABEL, sm)
+            if cfg.d1:
+                out1 = d1(probs_t if cfg.d1_on_probs else o_t)
+                adv = adv + cfg.w1 * cfg.dr * losses.bce_with_logits(out1, SOURCE_LABEL, sm)
+            gen_total = sup + adv
+        with _SPAN["uda.step.gen_update"]:
+            gen_opt.zero_grad(set_to_none=True)
+        with _SPAN["uda.step.gen_backward"]:
+            gen_total.backward(inputs=gen_params)  # the discriminators take no gradient
+        with _SPAN["uda.step.gen_update"]:
+            if cfg.sgd:
+                # a parameter no output depends on (the encoder's unused conv1_1)
+                # has no gradient, and torch's SGD would skip it; the reference
+                # numerics decay every parameter, so give it a zero gradient and
+                # let weight decay and momentum act on it too
+                for p in gen_params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
+            gen_opt.step()
+
+        metrics.update(
+            seg_loss=l1 + l2, adv_loss=adv, gen_total_loss=gen_total,
+            entropy_loss=ent_s, entropy_loss_T=ent_t,
+        )
+        with _SPAN["uda.step.metrics"], torch.no_grad():
+            hard = (o_s == torch.amax(o_s, dim=-1, keepdim=True)).to(torch.float32)
+            metrics["seg_dice"] = losses.dice_coef_multilabel(mask_s, hard, num_labels=4, sample_mask=sm)
+
+        # ---- what phases 3-5 take: the outputs, detached
+        x = {}
+        if cfg.d1:
+            src_in, tgt_in = (probs_s, probs_t) if cfg.d1_on_probs else (o_s, o_t)
+            x["d1_src"], x["d1_tgt"] = src_in.detach(), tgt_in.detach()
+        if cfg.d2:
+            x["d2_src"], x["d2_tgt"] = unc_s.detach(), unc_t.detach()
+        if cfg.d4:
+            x["d4_src"], x["d4_tgt"] = pv_s.detach(), pv_t.detach()
+        if sm is not None:
+            x["sample_mask"] = sm
+        return {k: v.detach() for k, v in metrics.items()}, x
+
     def step(state: UDATrainState, batch):
         with _SPAN["uda.step"]:
-            b = _tensors(batch, device)
-            img_s, mask_s, img_t = b["img_s"], b["mask_s"].to(torch.float32), b["img_t"]
-            vert_s, vert_t = b.get("vert_s"), b.get("vert_t")
-            sm = b.get("sample_mask")
-            chamfer_m = chamfer if sm is None else partial(losses.chamfer_loss, sample_mask=sm)
-            rng = state.generator
             for m in (gen, *discs):
                 m.train()
-
-            # ---- phases 1+2: generator loss (supervised + adversarial) ---
-            with _SPAN["uda.step.gen_forward"]:
-                o_s, _, pv_s = gen(img_s, rng)
-                probs_s = _activate(cfg, o_s)
-                l1, l2 = _supervised_loss(cfg, probs_s, mask_s, sm)
-                metrics = {}
-                sup = l1 + l2
-                if cfg.point_head:
-                    l3 = chamfer_m(pv_s, vert_s)
-                    metrics["ver_s_loss"] = l3
-                    sup = sup + cfg.wp * l3
-                unc_s = _entropy_map(cfg, probs_s)
-                ent_s = losses.masked_mean(torch.sum(unc_s, dim=-1), sm)
-                if cfg.etpls and cfg.d2:
-                    sup = sup + ent_s  # train_mmwhs.py:227-230
-
-                o_t, _, pv_t = gen(img_t, rng)
-                probs_t = _activate(cfg, o_t)
-                unc_t = _entropy_map(cfg, probs_t)
-                ent_t = losses.masked_mean(torch.sum(unc_t, dim=-1), sm)
-                adv = ent_t if cfg.Tetpls else torch.zeros((), device=device)
-                if cfg.point_head and vert_t is not None:
-                    # logged only, never backpropagated (train_mscmrseg.py:230-231)
-                    with torch.no_grad():
-                        metrics["ver_t_loss"] = chamfer_m(pv_t.detach(), vert_t)
-                if cfg.d2:
-                    adv = adv + cfg.w2 * cfg.dr * losses.bce_with_logits(d2(unc_t), SOURCE_LABEL, sm)
-                if cfg.d4:
-                    out4, _, _ = d4(pv_t, rng)
-                    adv = adv + cfg.w4 * cfg.dr * losses.bce_with_logits(out4, SOURCE_LABEL, sm)
-                if cfg.d1:
-                    out1 = d1(probs_t if cfg.d1_on_probs else o_t)
-                    adv = adv + cfg.w1 * cfg.dr * losses.bce_with_logits(out1, SOURCE_LABEL, sm)
-                gen_total = sup + adv
-            with _SPAN["uda.step.gen_update"]:
-                gen_opt.zero_grad(set_to_none=True)
-            with _SPAN["uda.step.gen_backward"]:
-                gen_total.backward(inputs=gen_params)  # the discriminators take no gradient
-            with _SPAN["uda.step.gen_update"]:
-                if cfg.sgd:
-                    # a parameter no output depends on (the encoder's unused conv1_1)
-                    # has no gradient, and torch's SGD would skip it; the reference
-                    # numerics decay every parameter, so give it a zero gradient and
-                    # let weight decay and momentum act on it too
-                    for p in gen_params:
-                        if p.grad is None:
-                            p.grad = torch.zeros_like(p)
-                collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
-                gen_opt.step()
-
-            metrics.update(
-                seg_loss=l1 + l2, adv_loss=adv, gen_total_loss=gen_total,
-                entropy_loss=ent_s, entropy_loss_T=ent_t,
-            )
-            with _SPAN["uda.step.metrics"], torch.no_grad():
-                hard = (o_s == torch.amax(o_s, dim=-1, keepdim=True)).to(torch.float32)
-                metrics["seg_dice"] = losses.dice_coef_multilabel(mask_s, hard, num_labels=4, sample_mask=sm)
-
-            # ---- phases 3+4: discriminators on detached outputs ----------
-            if cfg.d1:
-                src_in, tgt_in = (probs_s, probs_t) if cfg.d1_on_probs else (o_s, o_t)
-                metrics.update(discriminator_phase(d1, d1_opt, src_in.detach(), tgt_in.detach(), sm, 1))
-            if cfg.d2:
-                metrics.update(discriminator_phase(d2, d2_opt, unc_s.detach(), unc_t.detach(), sm, 2))
-            if cfg.d4:
-                # stats order: target (phase 2) -> source -> target
-                d4_logits = lambda p: d4(p, rng)[0]  # noqa: E731
-                metrics.update(discriminator_phase(d4_logits, d4_opt, pv_s.detach(), pv_t.detach(), sm, 4))
-
+            metrics, x = generator_phases(_tensors(batch, device), state.generator)
+            # ---- phases 3-5: discriminators on detached outputs, eagerly or from one CUDA graph
+            metrics.update(disc_graphs(x, state.generator))
             state.step += 1
             return state, {k: v.detach() for k, v in metrics.items()}
 
+    step.disc_graphs = disc_graphs
     return collectives.within(mesh, step)
 
 

@@ -76,8 +76,11 @@ QUEUE_WAIT = "uda.queue_wait"  # DevicePrefetcher's consumer: the queue's get, t
 PREPROCESS = "uda.preprocess"  # make_device_preprocess's train transform
 PREPROCESS_PARTS = ("uda.preprocess.augment", "uda.preprocess.clouds", "uda.preprocess.finish")
 STEP = "uda.step"  # make_train_step's step
+DISC_REPLAY = "uda.step.disc_replay"  # phases 3-5 from their CUDA graph: copies in, replay, copy out; calls = replays
+DISC_CAPTURE = "uda.step.disc_capture"  # a capture of that graph; calls = captures
+DISC_GRAPH = (DISC_REPLAY, DISC_CAPTURE)  # neither fires where phases 3-5 run eagerly (the CPU, a mesh)
 STEP_PARTS = ("uda.step.gen_forward", "uda.step.gen_backward", "uda.step.gen_update", "uda.step.metrics") + tuple(
-    f"uda.step.d{k}.{part}" for k in (1, 2, 4) for part in ("forward", "backward", "update"))
+    f"uda.step.d{k}.{part}" for k in (1, 2, 4) for part in ("forward", "backward", "update")) + DISC_GRAPH
 SPAN_NAMES = (ITERATION, QUEUE_WAIT, PREPROCESS) + PREPROCESS_PARTS + (STEP,) + STEP_PARTS
 
 # {profiler recording when the iteration began: {span name: [host ns, calls]}}; held by the module, as the

@@ -575,3 +575,157 @@ def test_trainer_epoch_on_the_card_with_a_prefetcher(dev, tmp_path):
     assert [b - a for a, b in zip(before, counts())] == [3, 2, 64, 64, 3]
     main_stream = torch.cuda.current_stream().cuda_stream
     assert len(placed_in) == 2 and all(s != main_stream for s in placed_in)  # copied on the prefetcher's own stream
+
+
+# the benchmark's two paper configurations (perfbench/configs/), the kernels selected
+PAPER = {
+    "mscmrseg": dict(d1=True, d2=True, d4=True, lr=1e-3, d1lr=2.5e-5, d2lr=2.5e-5, d4lr=2.5e-5, dr=0.01),
+    "mmwhs": dict(d1=True, d2=True, d4=True, ft=True, extd4=True, softmax=True, d1_on_probs=True, entropy_norm=True,
+                  lr=2e-4, d1lr=1e-4, d2lr=5e-5, d4lr=1e-4, dr=1.0),
+}
+
+
+@pytest.fixture
+def deterministic(dev):
+    """cuDNN's deterministic algorithms: two runs of one program from one
+    seed part ways within an epoch without them."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield dev
+    torch.backends.cudnn.deterministic = before
+
+
+def _paper_cfg(name, **kw):
+    from pointcloududa_torch.cli.common import with_kernels
+    from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
+
+    make = mscmrseg_default if name == "mscmrseg" else mmwhs_default
+    return with_kernels(make(**{**PAPER[name], "compute_dtype": "bfloat16", **kw}))
+
+
+def _graph_run(cfg, batches, graphed):
+    """Steps from one seed on the card, phases 3-5 replayed from their graph
+    (``graphed``) or run eagerly; the state, each step's metrics and the
+    span totals."""
+    from pointcloududa_torch.train.state import create_train_state
+    from pointcloududa_torch.train.step import make_train_step
+    from pointcloududa_torch.utils import timer
+
+    st = create_train_state(cfg, seed=5)
+    step = make_train_step(cfg, st.models, st.optimizers)
+    step.disc_graphs.on_card = graphed
+    timer.reset_spans()
+    metrics = []
+    for b in batches:
+        st, m = step(st, b)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return st, metrics, timer.span_totals()
+
+
+def _largest_differences(a, b):
+    """{what: largest absolute difference} of two runs' states and metrics
+    where they are not bit-equal: every network's parameters and buffers,
+    every optimiser's state, the dropout generator, each step's metrics."""
+    (sa, ma), (sb, mb) = a, b
+    out = {}
+
+    def cmp(name, x, y):
+        x, y = torch.as_tensor(x), torch.as_tensor(y)
+        if not torch.equal(x, y):
+            out[name] = float((x.double() - y.double()).abs().max()) if x.is_floating_point() else "differs"
+
+    for i, (na, nb) in enumerate(zip(sa.models, sb.models)):
+        if na is not None:
+            for (k, va), (_, vb) in zip(na.state_dict().items(), nb.state_dict().items()):
+                cmp(f"net{i}.{k}", va, vb)
+    for i, (oa, ob) in enumerate(zip(sa.optimizers, sb.optimizers)):
+        if oa is not None:
+            for j, (pa, pb) in enumerate(zip(oa.state.values(), ob.state.values())):
+                for k in pa:
+                    cmp(f"opt{i}.{j}.{k}", pa[k], pb[k])
+    cmp("dropout generator", sa.generator.get_state(), sb.generator.get_state())
+    for i, (x, y) in enumerate(zip(ma, mb)):
+        assert list(x) == list(y)
+        for k in x:
+            cmp(f"step{i}.{k}", x[k], y[k])
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(PAPER))
+def test_graphed_discriminator_phases_equal_eager_ones(deterministic, name, dtype):
+    """Six steps of a paper configuration at bs 4 (in the CLIs' bfloat16 and
+    in float32) with phases 3-5 from one CUDA graph (the first eager, the
+    second captures, then replays) against six eager steps from the same
+    weights, batches and generator seed: parameters, momentum buffers, D4's
+    running statistics, each step's metrics and the dropout generator's state
+    bit-equal."""
+    from pointcloududa_torch.data.synthetic import synthetic_batch
+    from pointcloududa_torch.utils import timer
+
+    cfg = _paper_cfg(name, bs=4, compute_dtype=dtype)
+    batches = [synthetic_batch(cfg, 4, seed=s) for s in range(6)]
+    eager = _graph_run(cfg, batches, graphed=False)
+    graphed = _graph_run(cfg, batches, graphed=True)
+    assert graphed[2][timer.DISC_CAPTURE][1] == 1 and graphed[2][timer.DISC_REPLAY][1] == 5
+    assert timer.DISC_REPLAY not in eager[2]
+    assert _largest_differences(eager[:2], graphed[:2]) == {}
+
+
+def test_a_padded_tail_runs_eagerly_between_replays(deterministic):
+    """Full, full, a tail with a ``sample_mask``, full: the tail runs eagerly
+    (its key seen once), the last step replays the graph captured at the
+    second, and the run equals the eager one bit for bit."""
+    from pointcloududa_torch.data.synthetic import synthetic_batch
+    from pointcloududa_torch.utils import timer
+
+    cfg = _paper_cfg("mscmrseg", bs=4)
+    batches = [synthetic_batch(cfg, 4, seed=s) for s in range(4)]
+    batches[2]["sample_mask"] = np.array([1, 1, 0, 0], np.float32)
+    eager = _graph_run(cfg, batches, graphed=False)
+    graphed = _graph_run(cfg, batches, graphed=True)
+    assert graphed[2][timer.DISC_CAPTURE][1] == 1 and graphed[2][timer.DISC_REPLAY][1] == 2
+    assert graphed[2]["uda.step.d4.forward"][1] == 3  # the first step, the capture's pass and the tail; no replay
+    assert _largest_differences(eager[:2], graphed[:2]) == {}
+
+
+def test_a_restore_mid_run_recaptures_and_matches_the_uninterrupted_run(deterministic, tmp_path):
+    """``save_full`` after one epoch, another epoch, then ``restore_full``
+    back to the snapshot (new momentum buffers: the graph is captured again)
+    and the epoch again: the state equals that of two epochs straight."""
+    from pointcloududa_torch.config import mmwhs_default
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks
+    from pointcloududa_torch.train.loop import UDATrainer
+    from pointcloududa_torch.utils import timer
+
+    cfg = mmwhs_default(**{**PAPER["mmwhs"], "aug": "light", "filters": 8, "crop_size": 96, "fc_inch": 1, "bs": 4,
+                           "chamfer_impl": "pallas", "bn_stats_impl": "pallas", "compute_dtype": "bfloat16"})
+
+    class Batches:
+        steps_per_epoch = 3
+
+        def epoch(self):
+            rng = np.random.default_rng(0)
+            for s in range(3):
+                yield {"img_s": rng.normal(size=(4, 96, 96, 3)).astype(np.float32), "mask_s": synthetic_blob_masks(4, 96, seed=s),
+                       "img_t": rng.normal(size=(4, 96, 96, 3)).astype(np.float32), "mask_t": synthetic_blob_masks(4, 96, seed=9 + s)}
+
+    def trainer(d):
+        return UDATrainer(cfg, Batches(), {}, workdir=str(tmp_path / d / "w"), logdir=str(tmp_path / d / "r"))
+
+    straight = trainer("a")
+    straight.train_epoch()
+    straight.train_epoch()
+    assert timer.span_totals()[timer.DISC_REPLAY][1] == 3 and timer.DISC_CAPTURE not in timer.span_totals()
+    resumed = trainer("b")
+    resumed.train_epoch()
+    resumed.save_full(str(tmp_path / "snap"), 1)
+    resumed.train_epoch()
+    resumed.restore_full(str(tmp_path / "snap"))
+    resumed.train_epoch()
+    assert timer.span_totals()[timer.DISC_CAPTURE][1] == 1 and timer.span_totals()[timer.DISC_REPLAY][1] == 3
+    torch.cuda.synchronize()
+    for t in (straight, resumed):
+        t.writer.close()
+    assert _largest_differences((straight.state, []), (resumed.state, [])) == {}
