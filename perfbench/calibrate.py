@@ -1,7 +1,7 @@
 """The readings the limits of ``correct`` are set from, on the card, for one
 cell over many seeds in one process:
 
-    python3 perfbench/calibrate.py --workload <name> --seeds <n> [<n> ...] [--out <file>] [--tf32]
+    python3 perfbench/calibrate.py --workload <name> --seeds <n> [<n> ...] [--out <file>]
 
 For each seed it builds the program's trainer and runs its first three
 steps as a benchmark run's set-up does (``harness.first_steps``), then the
@@ -11,19 +11,22 @@ with the numbers of ``correctness`` for:
 * ``program``: the program against the reference (sound runs: the lower
   reading of each limit);
 * ``control``: the reference with every convolution's and linear layer's
-  operands rounded to float8 e4m3 (the precision below the configuration's
+  operands rounded to the precision below the configuration's
+  (``correctness.control_rounding``: TF32 under float32, float8 e4m3 under
   bfloat16), against the reference; its ``chamfer_gap`` and ``bn_gap`` put
   the plain kernels one precision lower (``correctness.kernel_gaps``) in
   place of the program's kernels, on the arguments the program's first
   step gave them;
+* ``program_tf32`` (float32 configurations): the program's own path one
+  precision lower, its first three steps with PyTorch's TF32 switched on
+  for cuDNN's convolutions and for matmuls, against the reference (its
+  kernels run in float32 either way, so its kernel numbers are the
+  program's);
 * ``half_batch``: the reference with half of each batch left out and the
   means taken over the rest, against the reference;
 * ``rounding``: the look's witness, no control: the reference with its
   BatchNorm statistics summed in float64 (rounded once to float32) against
   the reference, which shows how far rounding alone moves each number.
-
-With ``--tf32`` the program runs with PyTorch's default of TF32 for cuDNN's
-float32 convolutions (the look; the benchmark runs it without).
 
 A step that returns its state unchanged reads 1 on ``change_gap`` by
 construction (every change is 0) and needs no run.
@@ -93,14 +96,12 @@ def main(argv=None) -> int:
 
     from perfbench import correctness, harness, spec
     from perfbench.reference import unet
-    from perfbench.reference.unet import fp8_e4m3
     from perfbench.weights import make_weights
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=int, nargs="+", required=True)
     p.add_argument("--out", default="")
-    p.add_argument("--tf32", action="store_true")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
@@ -108,17 +109,25 @@ def main(argv=None) -> int:
     cell = spec.resolve(args.workload)
     device = torch.device("cuda")
     out = open(args.out, "a") if args.out else None
-    for seed in args.seeds:
-        t = time.perf_counter()
-        built = harness.first_steps(cell, seed, device, tf32=args.tf32)
-        prog, stage, cfg, ref_cfg = built["prog"], built["stage"], built["cfg"], built["ref_cfg"]
-        raws = built["pool"][:correctness.STEPS]
+
+    def program(seed, tf32):
+        built = harness.first_steps(cell, seed, device, tf32=tf32)
+        got = {k: built[k] for k in ("prog", "stage", "cfg", "ref_cfg")}
+        got["raws"] = built["pool"][:correctness.STEPS]
         built["trainer"].writer.close()
         built["tmp"].cleanup()
         del built
         gc.collect()
         torch.cuda.empty_cache()
-        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        return got
+
+    for seed in args.seeds:
+        t = time.perf_counter()
+        got = program(seed, False)
+        prog, stage, cfg, ref_cfg, raws = (got[k] for k in ("prog", "stage", "cfg", "ref_cfg", "raws"))
+        step_round, kernel_round = correctness.control_rounding(ref_cfg.compute_dtype)
+        tf32_run = program(seed, True) if ref_cfg.compute_dtype == "float32" else None
         weights = make_weights(ref_cfg, seed, device)
 
         def run(**kw):
@@ -129,10 +138,12 @@ def main(argv=None) -> int:
         def numbers(readings, st, **kw):
             return correctness.check_numbers(readings, st, ref, ref_stage, device, **kw)
 
-        line = {"workload": cell.name, "seed": seed, "tf32": args.tf32}
+        line = {"workload": cell.name, "seed": seed}
         line["program"] = numbers(prog, stage, calls=stage["calls"])
-        control, c_stage = run(operand_round=fp8_e4m3)
-        line["control"] = numbers(control, c_stage, calls=stage["calls"], control=True)
+        control, c_stage = run(operand_round=step_round)
+        line["control"] = numbers(control, c_stage, calls=stage["calls"], lower=kernel_round)
+        if tf32_run is not None:
+            line["program_tf32"] = numbers(tf32_run["prog"], tf32_run["stage"], calls=tf32_run["stage"]["calls"])
         half, h_stage = run(batch_fn=correctness.half_batch)
         line["half_batch"] = numbers(half, h_stage)
         unet.batch_stats, plain = float64_stats, unet.batch_stats
@@ -151,7 +162,7 @@ def main(argv=None) -> int:
         if out is not None:
             out.write(text + "\n")
             out.flush()
-        del weights, stage, ref_stage, c_stage, h_stage, w_stage
+        del weights, stage, ref_stage, c_stage, h_stage, w_stage, tf32_run
         gc.collect()
         torch.cuda.empty_cache()
     if out is not None:

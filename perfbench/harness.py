@@ -2,15 +2,18 @@
 ``UDATrainer.train_epoch``, the readings, and the check against the plain
 reference.
 
-Set-up (counted in ``setup_s``, from the process's start): imports, CUDA
-start-up, the trainer built from the cell's configuration through
-``cli/common.py:with_kernels`` (and with it the kernels' library, built in
-the checkout's ``build/`` on a first run), the weights and the raw batches
-made from the seed, the first three steps (which the check reads), and a
-warm-up epoch. The window starts when ``train_epoch`` is called and ends
-when it returns (``_fetch_means`` reads the metrics back, which
-synchronises). With ``--trace 1`` the profiler covers a slice of the window
-and the run reports the per-layer metrics.
+Set-up (counted in ``setup_s``, from the process's start), in the stages
+that ``Stages`` times and the run prints on standard error: imports and CUDA
+start-up (``imports_cuda``), the kernels' library (``library``: built in the
+checkout's ``build/`` on a first run, loaded on later ones), the raw batches
+made from the seed (``batches``), the trainer built from the cell's
+configuration through ``cli/common.py:with_kernels`` and the weights made
+from the seed (``trainer_weights``), the first three steps, which the check
+reads (``checked_steps``), and a warm-up epoch (``warmup``). The window
+starts when ``train_epoch`` is called and ends when it returns
+(``_fetch_means`` reads the metrics back, which synchronises). With
+``--trace 1`` the profiler covers a slice of the window and the run reports
+the per-layer metrics.
 """
 
 from __future__ import annotations
@@ -48,6 +51,24 @@ def configs(cell: spec.Cell, seed: int, shrink: dict | None = None):
     return with_kernels(getattr(port_config, make)(**overrides)), getattr(ref_config, make)(**overrides)
 
 
+class Stages:
+    """Seconds of each stage of set-up: ``mark(name)`` closes the stage
+    running since the last mark (or ``t0``), the clock read after the
+    device has finished what it was given."""
+
+    def __init__(self, t0: float, device):
+        self.device = torch.device(device)
+        self.last = t0
+        self.seconds: dict = {}
+
+    def mark(self, name: str) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+
+
 def forbidden_modules() -> list:
     return sorted({name.split(".")[0] for name in list(sys.modules)} & set(FORBIDDEN))
 
@@ -67,15 +88,18 @@ def _iteration_ms(anchor, events) -> list:
 
 
 def first_steps(cell: spec.Cell, seed: int, device, shrink: dict | None = None,
-                raw_size: int | None = None, fault=None, tf32: bool = False) -> dict:
+                raw_size: int | None = None, fault=None, tf32: bool = False, stages: Stages | None = None) -> dict:
     """Build the trainer from the cell's files, load the weights made from
     the seed, and run its first three steps through ``train_epoch`` and the
     feed, reading what the check compares (``prog``, and ``stage``: what
-    ``correctness.Recorder`` kept of the first step).
+    ``correctness.Recorder`` kept of the first step) and the shapes of the
+    first step's BN-statistics calls in order (``bn_calls``, eager: no graph
+    replays a first step).
 
     Float32 work runs in float32, as the configuration states (PyTorch's
     default would run cuDNN's float32 convolutions, the classifier's among
-    them, in TF32); ``tf32`` restores that default (``calibrate.py``'s look)."""
+    them, in TF32); ``tf32`` switches TF32 on for convolutions and matmuls
+    (``calibrate.py``'s control: the program's own path one precision lower)."""
     from pointcloududa_torch.train.loop import UDATrainer
 
     torch.backends.cudnn.allow_tf32 = tf32
@@ -84,41 +108,60 @@ def first_steps(cell: spec.Cell, seed: int, device, shrink: dict | None = None,
     cfg, ref_cfg = configs(cell, seed, shrink)
     shape = dict(workload=cfg.workload, bs=cfg.bs, raw_size=raw_size or cell.config["raw_size"],
                  channels=cfg.in_channels, n_class=cfg.n_class, points=300)
+    mark = stages.mark if stages is not None else (lambda name: None)
     pool = make_pool(shape, cell.traffic, seed)
     feed = Feed(pool)
+    mark("batches")
     tmp = tempfile.TemporaryDirectory(prefix="perfbench-")
     trainer = UDATrainer(cfg, feed, {}, workdir=os.path.join(tmp.name, "w"), logdir=os.path.join(tmp.name, "r"),
                          device=device)
     weights = make_weights(ref_cfg, seed, device)
     _load(trainer.state.models, weights)
+    mark("trainer_weights")
     if fault is not None:
         fault(trainer)
     probe = tracing.Probe(trainer, annotate=False, cuda=device.type == "cuda")
     recorder = correctness.Recorder(trainer)
+    bn = tracing.BnCalls()
     feed.limit = 1
     trainer.train_epoch()
+    bn.restore()
     stage = recorder.take()
     grads = correctness.grad_norms(trainer.state.models, trainer.state.optimizers)
     feed.limit = correctness.STEPS - 1
     trainer.train_epoch()
     prog = correctness.to_host({"losses": correctness.losses_of(probe.metrics[:correctness.STEPS]), "grads": grads,
                                 "changes": correctness.change_norms(trainer.state.models, weights)})
+    mark("checked_steps")
     return dict(cfg=cfg, ref_cfg=ref_cfg, pool=pool, feed=feed, trainer=trainer, probe=probe, tmp=tmp, prog=prog,
-                stage=stage)
+                stage=stage, bn_calls=bn.calls)
 
 
 def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cuda", t0: float | None = None,
             shrink: dict | None = None, raw_size: int | None = None, fault=None) -> dict:
     """Run the cell once; returns ``{"result": <the last line's object>,
     "program", "reference": <the readings compared>, "iter_ms", "trace",
-    "power_limit"}``. ``shrink``/``raw_size``: a smaller configuration (the
-    CPU tests); ``fault(trainer)``: breaks the timed path under the harness
-    (the tests of the check)."""
+    "power_limit", "setup_stages", "span_calls": <the calls of each of the
+    program's spans in the window's untraced iterations>}``.
+    ``shrink``/``raw_size``: a smaller configuration (the CPU tests);
+    ``fault(trainer)``: breaks the timed path under the harness (the tests
+    of the check)."""
     t0 = time.perf_counter() if t0 is None else t0
     device = torch.device(device)
     on_card = device.type == "cuda"
     traffic = cell.traffic
-    built = first_steps(cell, seed, device, shrink, raw_size, fault)
+    stages = Stages(t0, device)
+    from pointcloududa_torch.train import loop  # noqa: F401  (the program's imports belong to this stage)
+    from pointcloududa_torch.utils import timer
+
+    torch.empty(1, device=device)  # the CUDA context
+    stages.mark("imports_cuda")
+    if on_card:
+        from pointcloududa_torch.utils import native
+
+        native.load()
+    stages.mark("library")
+    built = first_steps(cell, seed, device, shrink, raw_size, fault, stages=stages)
     cfg, ref_cfg, pool, feed, trainer, probe, tmp, prog, stage = (
         built[k] for k in ("cfg", "ref_cfg", "pool", "feed", "trainer", "probe", "tmp", "prog", "stage"))
     feed.limit = int(traffic["warmup_iters"])
@@ -128,8 +171,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cud
         from torch.profiler import ProfilerActivity, profile
 
         prof = profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else []))
-    if on_card:
-        torch.cuda.synchronize(device)
+    stages.mark("warmup")
     setup_s = time.perf_counter() - t0
 
     # ---- the window ------------------------------------------------------
@@ -158,6 +200,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cud
     probe.after_step = None
     window_s = w1 - w0
     iters = len(probe.step_t) - n0
+    span_calls = {name: calls for name, (_, calls) in timer.span_totals().items()}
     iter_ms = _iteration_ms(anchor, probe.events[n0:]) if on_card else \
         [1e3 * (b[1] - a[1]) for a, b in zip(probe.step_t[n0 - 1:], probe.step_t[n0:])]
     totals = torch.stack([m["gen_total_loss"].float() for m in probe.metrics[n0:]]).cpu()
@@ -177,7 +220,7 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cud
     run = SimpleNamespace(
         cfg=cfg, bs=cfg.bs, iterations=iters, window_s=window_s, setup_s=setup_s, iter_ms=iter_ms,
         untraced_iter_ms=iter_ms[1:untraced] if untraced > 2 else [], host_gap_s=host_gaps[:max(untraced - 1, 0)],
-        trace=red,
+        trace=red, bn_calls=built["bn_calls"],
         fps_valid=fps_valid, fps_shapes=spans.fps_shapes if spans else [], step_flops=counting.step_flops(cfg),
         on_card=on_card,
     )
@@ -213,7 +256,23 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cud
         result["breakdown"] = {"device_ops": red["device_ops"], "idle_gaps": red["idle_gaps"]}
     result["checks"] = {k: {"value": numbers[k], "limit": limits[k]} for k in numbers}
     return {"result": result, "program": prog, "reference": ref, "iter_ms": iter_ms, "trace": red,
-            "power_limit": power_limit(device) if on_card else None}
+            "power_limit": power_limit(device) if on_card else None, "setup_stages": stages.seconds,
+            "span_calls": span_calls}
+
+
+def iteration_summary(ms: list) -> dict:
+    """The window's iteration times in brief: how many, the median and
+    quartiles, the mean of each tenth of the window in order, and the five
+    slowest with their place (whether a run's spread is a few slow
+    iterations or a whole-run offset)."""
+    if not ms:
+        return {"n": 0}
+    arr = np.asarray(ms)
+    slowest = np.argsort(arr)[::-1][:5]
+    return {"n": len(ms), "median": float(np.median(arr)),
+            "quartiles": [float(q) for q in np.percentile(arr, [25, 75])],
+            "tenths": [float(np.mean(part)) for part in np.array_split(arr, 10)] if len(ms) >= 10 else [],
+            "slowest": [[int(i), float(arr[i])] for i in slowest]}
 
 
 def power_limit(device) -> str:
@@ -247,13 +306,14 @@ def main(argv=None, t0: float | None = None) -> int:
         return 4
     res = out["result"]
     ms = out["iter_ms"]
-    tenths = [float(np.mean(part)) for part in np.array_split(np.asarray(ms), 10) if len(part)] if len(ms) >= 10 else []
-    print(json.dumps({"iter_ms": {"n": len(ms), "median": float(np.median(ms)) if ms else None, "tenths": tenths},
+    print(json.dumps({"iter_ms": iteration_summary(ms), "setup_stages": out["setup_stages"],
+                      "span_calls": out["span_calls"],
                       "card": out["power_limit"], "memory_peak_bytes": res["device"]["memory_peak_bytes"],
                       "trace": {k: v for k, v in (out["trace"] or {}).items()
-                                if k not in ("device_ops", "idle_gaps", "kernel_times")}
+                                if k not in ("device_ops", "idle_gaps", "kernel_times", "bn_kernels")}
                       if out["trace"] else None}, default=str))
     print(json.dumps({"program": out["program"], "reference": out["reference"]}), file=sys.stderr)
+    print("setup stages (s): " + ", ".join(f"{k} {v!r}" for k, v in out["setup_stages"].items()), file=sys.stderr)
     for k, c in res["checks"].items():
         print(f"check {k} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()

@@ -1,5 +1,7 @@
-"""Kernel-launch runtime calls an iteration in the traced slice (a lower
-bound: the profiler can lose events)."""
+"""Launch calls the host makes an iteration in the traced slice: runtime or
+driver calls that launch a kernel, and those that launch a CUDA graph, each
+graph launch counted once however many kernels it runs (a lower bound: the
+profiler can lose events)."""
 
 
 def read(run):

@@ -130,10 +130,20 @@ def fp8_e4m3(t: torch.Tensor) -> torch.Tensor:
     return t + (rounded - t.detach())
 
 
+def tf32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (float32) rounded to TF32, the tensor cores' 10-bit mantissa
+    (to nearest, ties away from zero), returned in float32. The gradient
+    passes straight through, as :func:`fp8_e4m3`'s does."""
+    bits = t.detach().to(torch.float32).contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32).to(t.dtype)
+    return t + (rounded - t.detach())
+
+
 def set_operand_rounding(module: nn.Module, fn) -> None:
     """Every :class:`Conv2d`, :class:`Conv1d` and :class:`Linear` under
     ``module`` rounds its input and weight with ``fn`` before the product
-    (the control: :func:`fp8_e4m3`), or not, with ``None``."""
+    (the control: :func:`fp8_e4m3` under bfloat16, :func:`tf32` under
+    float32), or not, with ``None``."""
     for m in module.modules():
         if isinstance(m, _ComputeDtype):
             m.operand_round = fn

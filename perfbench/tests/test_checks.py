@@ -8,7 +8,6 @@ correct."""
 import pytest
 
 from perfbench import correctness, harness
-from perfbench.reference.unet import fp8_e4m3
 from perfbench.tests.conftest import SHRINK, small_cell
 from perfbench.weights import make_weights
 
@@ -18,9 +17,10 @@ CELLS = ["mscmrseg-d124.aug2", "mmwhs-d124.light-fps"]
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("seed", [1, 2, 3])
 def test_the_control_is_not_correct(name, seed):
-    """The reference one precision lower in the program's place: float8
-    operands in the whole step, and the plain kernels one precision lower on
-    the arguments the program's first step gave its kernels."""
+    """The reference one precision lower in the program's place: TF32
+    operands in the whole step (the configuration's float32, TF32 off), and
+    the plain kernels one precision lower on the arguments the program's
+    first step gave its kernels."""
     cell, raw_size = small_cell(name)
     built = harness.first_steps(cell, seed, "cpu", shrink=SHRINK, raw_size=raw_size)
     built["trainer"].writer.close()
@@ -28,8 +28,9 @@ def test_the_control_is_not_correct(name, seed):
     ref_cfg, raws, calls = built["ref_cfg"], built["pool"][:3], built["stage"]["calls"]
     w = make_weights(ref_cfg, seed, "cpu")
     ref, ref_stage = correctness.reference_readings(ref_cfg, w, raws, "cpu")
-    control, c_stage = correctness.reference_readings(ref_cfg, w, raws, "cpu", operand_round=fp8_e4m3)
-    numbers = correctness.check_numbers(control, c_stage, ref, ref_stage, "cpu", calls=calls, control=True)
+    step_round, kernel_round = correctness.control_rounding(ref_cfg.compute_dtype)
+    control, c_stage = correctness.reference_readings(ref_cfg, w, raws, "cpu", operand_round=step_round)
+    numbers = correctness.check_numbers(control, c_stage, ref, ref_stage, "cpu", calls=calls, lower=kernel_round)
     assert not correctness.judge(numbers, cell.limits), numbers
 
 

@@ -32,10 +32,11 @@ def test_full_size_step_flops():
     assert got == {"mscmrseg-d124.aug2": 3439439547776.0, "mmwhs-d124.noaug": 4554278905216.0}
 
 
-def test_step_mfu_reads_100_on_a_chip_at_its_peak():
-    cfg, _ = harness.configs(spec.resolve("mscmrseg-d124.aug2"), 0)
+@pytest.mark.parametrize("dtype,peak", [("float32", counting.PEAK_F32_FLOPS), ("bfloat16", counting.PEAK_BF16_FLOPS)])
+def test_step_mfu_reads_100_on_a_chip_at_its_peak(dtype, peak):
+    cfg, _ = harness.configs(spec.resolve("mscmrseg-d124.aug2"), 0, {"compute_dtype": dtype})
     flops = counting.step_flops(cfg)
-    ms = 1e3 * flops / counting.PEAK_BF16_FLOPS
+    ms = 1e3 * flops / peak
     run = SimpleNamespace(cfg=cfg, step_flops=flops, untraced_iter_ms=[ms, ms])
     assert spec.reader("step_mfu")(run) == pytest.approx(100.0)
 
@@ -52,12 +53,14 @@ def test_kernel_work_and_bounds():
 
 def test_roofline_readers_stay_within_their_bounds_time():
     cfg = dataclasses.replace(harness.configs(spec.resolve("mmwhs-d124.light-fps"), 0)[0])
-    full = f"{cfg.bs}x{cfg.filters}x{cfg.crop_size}x{cfg.crop_size}"
+    full = (cfg.bs, cfg.filters, cfg.crop_size, cfg.crop_size)
     nb, ops = counting.bn_stats_work((16, 32, 256, 256), 2, False)
     exact = counting.bound_s(nb, ops)[0] * 1e9
-    run = SimpleNamespace(cfg=cfg, fps_valid=[16 * 27552.0], fps_shapes=[(16, 196608, 300)], trace={"kernel_times": [
-        (f"bench.kernel.bn_fwd.{full}.bfloat16", "stats_forward_kernel", 2 * exact),
-        ("bench.kernel.bn_fwd.16x64x128x128.bfloat16", "stats_forward_kernel", 1.0),  # not the full-resolution level
-        ("bench.kernel.fps.0", "fps_kernel", 0.6e6)]})
+    fwd = "void stats_forward_kernel<__nv_bfloat16, 8>(...)"
+    run = SimpleNamespace(cfg=cfg, fps_valid=[16 * 27552.0], fps_shapes=[(16, 196608, 300)],
+                          bn_calls=[("bn_fwd", full, "bfloat16"), ("bn_fwd", (16, 64, 128, 128), "bfloat16")],
+                          trace={"kernel_times": [("bench.kernel.fps.0", "fps_kernel", 0.6e6)],
+                                 # the second is not at the full-resolution level
+                                 "bn_kernels": [[(fwd, 2 * exact), (fwd, 1.0)]]})
     assert spec.reader("kernels.roofline.bn_stats")(run) == pytest.approx(50.0)
     assert 2.0 < spec.reader("kernels.roofline.fps")(run) < 5.0

@@ -18,11 +18,11 @@ def traced_run():
 
     cell, raw_size = small_cell("mmwhs-d124.light-fps")
     out = harness.measure(cell, 11, 2.0, trace=True, device="cpu", shrink=SHRINK, raw_size=raw_size)
-    return out["result"], timer.span_totals(), timer.span_totals(profiled=True)
+    return out["result"], timer.span_totals(), timer.span_totals(profiled=True), out["setup_stages"]
 
 
 def test_a_traced_run_reads_every_span_metric(traced_run):
-    result, unprofiled, profiled = traced_run
+    result, unprofiled, profiled, _ = traced_run
     metrics = {k: v["value"] for k, v in result["metrics"].items()}
     assert set(READERS) <= set(metrics), sorted(metrics)
     assert all(result["metrics"][k]["unit"] == "ms" and metrics[k] >= 0 for k in READERS)
@@ -32,3 +32,9 @@ def test_a_traced_run_reads_every_span_metric(traced_run):
     assert n >= 1 and profiled["uda.iteration"][1] >= 2
     assert metrics["step.host_ms"] == pytest.approx(unprofiled["uda.step"][0] / n / 1e6)
     assert metrics["trainer.queue_wait_ms"] == pytest.approx(unprofiled["uda.queue_wait"][0] / n / 1e6)
+
+
+def test_set_up_is_timed_by_stage(traced_run):
+    stages = traced_run[3]
+    assert list(stages) == ["imports_cuda", "library", "batches", "trainer_weights", "checked_steps", "warmup"]
+    assert all(v >= 0 for v in stages.values()) and stages["checked_steps"] > 0

@@ -68,3 +68,22 @@ def test_the_kernels_plain_copies_equal_the_ports():
     a = torch.rand(4, 3, 5, 5, generator=g).to(torch.bfloat16)
     gm, gq = torch.rand(3, generator=g), torch.rand(3, generator=g)
     assert torch.equal(bn.stats_backward_plain(a, gm, gq), bn_kernel.stats_backward_plain(a, gm, gq))
+
+
+def test_set_up_records_the_bn_calls_of_the_first_step_in_order():
+    """The sequence ``kernels.roofline.bn_stats`` matches a traced
+    iteration's BN-statistics kernels to: each BatchNorm's forward call at
+    its level's shape, then the backward calls, full resolution in both."""
+    cell, raw_size = small_cell("mscmrseg-d124.aug2")
+    built = harness.first_steps(cell, 11, "cpu", shrink=SHRINK, raw_size=raw_size)
+    built["trainer"].writer.close()
+    built["tmp"].cleanup()
+    cfg, calls = built["cfg"], built["bn_calls"]
+    levels = {(cfg.bs, cfg.filters * 2**i, cfg.crop_size // 2**i, cfg.crop_size // 2**i) for i in range(cfg.n_block)}
+    kinds = [k for k, _, _ in calls]
+    assert kinds.count("bn_fwd") == kinds.count("bn_bwd") > 0
+    assert kinds.index("bn_bwd") == kinds.count("bn_fwd")  # every forward before the backward pass
+    assert {s for _, s, _ in calls} == levels
+    assert {d for _, _, d in calls} == {cfg.compute_dtype}
+    full = (cfg.bs, cfg.filters, cfg.crop_size, cfg.crop_size)
+    assert {k for k, s, _ in calls if s == full} == {"bn_fwd", "bn_bwd"}
