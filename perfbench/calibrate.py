@@ -41,16 +41,6 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 
-def float64_stats(x, use_kernel=False):
-    """``reference.bn.batch_stats`` with its sums in float64."""
-    import torch
-
-    dims = (0,) + tuple(range(2, x.dim()))
-    xd = x.to(torch.float64)
-    mean, meansq = torch.mean(xd, dim=dims).float(), torch.mean(xd * xd, dim=dims).float()
-    return mean, torch.clamp_min(meansq - torch.square(mean), 0.0)
-
-
 def d4_look(cfg, ref_cfg, weights: dict, ref_cloud, prog_cloud, device) -> dict:
     """D4's forward and backward (its logits and the gradient of their sum
     with respect to the cloud), from ``weights``: the program's module
@@ -95,7 +85,7 @@ def main(argv=None) -> int:
     import torch
 
     from perfbench import correctness, harness, spec
-    from perfbench.reference import unet
+    from perfbench.reference import numerics
     from perfbench.weights import make_weights
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -146,11 +136,8 @@ def main(argv=None) -> int:
             line["program_tf32"] = numbers(tf32_run["prog"], tf32_run["stage"], calls=tf32_run["stage"]["calls"])
         half, h_stage = run(batch_fn=correctness.half_batch)
         line["half_batch"] = numbers(half, h_stage)
-        unet.batch_stats, plain = float64_stats, unet.batch_stats
-        try:
+        with numerics.float64_bn_statistics():
             witness, w_stage = run()
-        finally:
-            unet.batch_stats = plain
         line["rounding"] = numbers(witness, w_stage)
         if ref_cfg.d4:
             line["d4"] = d4_look(cfg, ref_cfg, weights, ref_stage["outputs"][1], stage["outputs"][1], device)

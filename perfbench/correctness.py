@@ -338,12 +338,12 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def control_rounding(compute_dtype: str):
     """The control's precision, the nearest below the configuration's
-    ``compute_dtype``: (the rounding of every convolution's and linear
-    layer's operands in the reference's step, the rounding of the plain
+    ``compute_dtype``: (the rounding of every product's operands in the
+    reference's step, ``reference/numerics.py``'s layers, the rounding of the plain
     kernels' operands and results). float32 (TF32 off): TF32; bfloat16:
     float8 e4m3 in the step, bfloat16 in the kernels (their float32
     arguments)."""
-    from perfbench.reference.unet import fp8_e4m3, tf32
+    from perfbench.reference.numerics import fp8_e4m3, tf32
 
     return {"float32": (tf32, tf32), "bfloat16": (fp8_e4m3, _bf16)}[compute_dtype]
 

@@ -2,7 +2,8 @@
 FLOPs of one training step from the configuration's shapes, and the bytes
 and operations of the BatchNorm-statistics and FPS kernels.
 
-Step FLOPs: forward and backward of every convolution, linear layer and
+Step FLOPs: the generator's from its architecture's ``generator_flops``
+(``reference/arch/<arch>.py``), the discriminators' here; forward and backward of every convolution, linear layer and
 matrix product in phases 1-5 of ``train/step.py``, counted as
 ``torch.utils.flop_counter.FlopCounterMode`` counts them (2 per
 multiply-add; a backward counts a product for each gradient autograd
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+from perfbench.reference import arch
+
 # NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12  # outside the tensor cores
@@ -24,7 +27,10 @@ HBM_BYTES_PER_S = 3.35e12
 
 
 @dataclass
-class _Count:
+class Count:
+    """The running count of one step's FLOPs, which each network's count
+    adds to product by product (an architecture's ``generator_flops`` too)."""
+
     flops: float = 0.0
 
     def product(self, fwd: float, x_grad: bool, w_grad: bool) -> bool:
@@ -33,49 +39,17 @@ class _Count:
         self.flops += fwd * (1 + int(x_grad) + int(w_grad))
         return x_grad or w_grad
 
-
-def _conv(c: _Count, b, cin, cout, k, h_out, w_out, x_grad, w_grad) -> bool:
-    return c.product(2.0 * b * cout * h_out * w_out * cin * k * k, x_grad, w_grad)
+    def conv(self, b, cin, cout, k, h_out, w_out, x_grad, w_grad) -> bool:
+        """A k x k convolution from ``cin`` to ``cout`` channels with a
+        (b, cout, h_out, w_out) output."""
+        return self.product(2.0 * b * cout * h_out * w_out * cin * k * k, x_grad, w_grad)
 
 
 def _out(h: int, k: int, s: int, p: int, d: int = 1) -> int:
     return (h + 2 * p - d * (k - 1) - 1) // s + 1
 
 
-def generator_flops(c: _Count, cfg, b: int, train: bool) -> None:
-    """One forward of the U-Net generator (and point head) on a (b, S, S)
-    batch; ``train``: the pass trains its weights."""
-    f, s = cfg.filters, cfg.crop_size
-    x_grad = False  # the image needs no gradient
-    for i in range(cfg.n_block):
-        out_ch, in_ch = f * 2**i, (cfg.in_channels if i == 0 else f * 2 ** (i - 1))
-        x_grad = _conv(c, b, in_ch, out_ch, 3, s, s, x_grad, train)
-        x_grad = _conv(c, b, out_ch, out_ch, 3, s, s, x_grad, train)
-        if i > 0:
-            x_grad = _conv(c, b, out_ch + in_ch, out_ch, 1, s, s, x_grad, train)
-        s //= 2
-    deep = f * 2**cfg.n_block
-    for i in range(cfg.bottleneck_depth):
-        x_grad = _conv(c, b, f * 2 ** (cfg.n_block - 1) if i == 0 else deep, deep, 3, s, s, x_grad, train)
-    if cfg.d4 or cfg.d4aux:
-        y = deep
-        if cfg.extpn:
-            conv_inch = 512 * f // 32
-            _conv(c, b, deep, 2 * conv_inch, 3, s, s, x_grad, train)
-            _conv(c, b, 2 * conv_inch, conv_inch, 3, s, s, x_grad, train)
-            y = conv_inch
-        _conv(c, b, y, 300, 6, s - 5, s - 5, x_grad, train)
-        c.product(2.0 * b * 300 * cfg.fc_inch * 3, x_grad, train)
-    for i in reversed(range(cfg.n_block)):
-        s *= 2
-        out_ch = f * 2**i
-        _conv(c, b, f * 2 ** (i + 1), out_ch, 3, s, s, x_grad, train)
-        _conv(c, b, 2 * out_ch, out_ch, 3, s, s, x_grad, train)
-        _conv(c, b, out_ch, out_ch, 3, s, s, x_grad, train)
-    _conv(c, b, f, cfg.n_class, 1, s, s, x_grad, train)
-
-
-def image_disc_flops(c: _Count, cfg, b: int, ext: bool, x_grad: bool, train: bool) -> None:
+def image_disc_flops(c: Count, cfg, b: int, ext: bool, x_grad: bool, train: bool) -> None:
     """One forward of an output or entropy discriminator on (b, S, S, n_class)."""
     s = cfg.crop_size
     layers = [(cfg.n_class, 64, 4, 2, 2), (64, 128, 4, 2, 2), (128, 256, 4, 2, 2), (256, 512, 4, 2, 2)]
@@ -84,13 +58,13 @@ def image_disc_flops(c: _Count, cfg, b: int, ext: bool, x_grad: bool, train: boo
     layers.append((256 if ext else 512, 1, 4, 2, 2))
     for cin, cout, k, st, p in layers:
         s = _out(s, k, st, p)
-        x_grad = _conv(c, b, cin, cout, k, s, s, x_grad, train)
+        x_grad = c.conv(b, cin, cout, k, s, s, x_grad, train)
 
 
-def _stn_flops(c: _Count, b: int, n: int, k: int, x_grad: bool, train: bool) -> bool:
+def _stn_flops(c: Count, b: int, n: int, k: int, x_grad: bool, train: bool) -> bool:
     g = x_grad
     for cin, cout in ((k, 64), (64, 128), (128, 1024)):
-        g = _conv(c, b, cin, cout, 1, n, 1, g, train)
+        g = c.conv(b, cin, cout, 1, n, 1, g, train)
     for cin, cout in ((1024, 512), (512, 256), (256, k * k)):
         g = c.product(2.0 * b * cin * cout, g, train)
     # x (B, N, k) @ trans (B, k, k): the points' gradient where they need one,
@@ -98,24 +72,25 @@ def _stn_flops(c: _Count, b: int, n: int, k: int, x_grad: bool, train: bool) -> 
     return c.product(2.0 * b * n * k * k, x_grad, g)
 
 
-def point_disc_flops(c: _Count, cfg, b: int, x_grad: bool, train: bool, n: int = 300) -> None:
+def point_disc_flops(c: Count, cfg, b: int, x_grad: bool, train: bool, n: int = 300) -> None:
     """One forward of the PointNet discriminator D4 on (b, n, 3) clouds."""
     g = _stn_flops(c, b, n, 3, x_grad, train)
     ladder = ((3, 8), (8, 64)) if cfg.extd4 else ((3, 64),)
     for cin, cout in ladder:
-        g = _conv(c, b, cin, cout, 1, n, 1, g, train)
+        g = c.conv(b, cin, cout, 1, n, 1, g, train)
     if cfg.ft:
         g = _stn_flops(c, b, n, 64, g, train)
     ladder = ((64, 128), (128, 256), (256, 512), (512, 1024)) if cfg.extd4 else ((64, 128), (128, 1024))
     for cin, cout in ladder:
-        g = _conv(c, b, cin, cout, 1, n, 1, g, train)
+        g = c.conv(b, cin, cout, 1, n, 1, g, train)
     for cin, cout in ((1024, 512), (512, 256), (256, 1)):
         g = c.product(2.0 * b * cin * cout, g, train)
 
 
 def step_flops(cfg) -> float:
     """Model FLOPs of one call of the 5-phase step at ``cfg.bs``."""
-    c, b = _Count(), cfg.bs
+    c, b = Count(), cfg.bs
+    generator_flops = arch.load(arch.of(cfg)).generator_flops
     # phases 1+2: the generator on source and target; the adversaries on the
     # target outputs pass the gradient back to the generator but train nothing
     generator_flops(c, cfg, b, train=True)

@@ -38,17 +38,26 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "pointcloududa_tpu")
 TRACE_START = 0.5  # of --seconds: the traced slice starts once this share of the window has passed
 
 
+def _overrides(cell: spec.Cell, seed: int, shrink: dict | None) -> dict:
+    return {**cell.config["uda_config"], **cell.traffic.get("uda_config", {}), "seed": int(seed), **(shrink or {})}
+
+
+def reference_config(cell: spec.Cell, seed: int, shrink: dict | None = None):
+    """The reference's UDAConfig from the cell's configuration and traffic
+    files (an ``arch`` with no file under ``reference/arch/`` raises here)."""
+    from perfbench.reference import config as ref_config
+
+    return getattr(ref_config, cell.config["defaults"])(**_overrides(cell, seed, shrink))
+
+
 def configs(cell: spec.Cell, seed: int, shrink: dict | None = None):
     """(the port's UDAConfig with the kernels selected, the reference's
     UDAConfig) from the cell's configuration and traffic files."""
     from pointcloududa_torch import config as port_config
     from pointcloududa_torch.cli.common import with_kernels
 
-    from perfbench.reference import config as ref_config
-
-    overrides = {**cell.config["uda_config"], **cell.traffic.get("uda_config", {}), "seed": int(seed), **(shrink or {})}
-    make = cell.config["defaults"]
-    return with_kernels(getattr(port_config, make)(**overrides)), getattr(ref_config, make)(**overrides)
+    ref_cfg = reference_config(cell, seed, shrink)
+    return with_kernels(getattr(port_config, cell.config["defaults"])(**_overrides(cell, seed, shrink))), ref_cfg
 
 
 class Stages:
@@ -92,9 +101,9 @@ def first_steps(cell: spec.Cell, seed: int, device, shrink: dict | None = None,
     """Build the trainer from the cell's files, load the weights made from
     the seed, and run its first three steps through ``train_epoch`` and the
     feed, reading what the check compares (``prog``, and ``stage``: what
-    ``correctness.Recorder`` kept of the first step) and the shapes of the
-    first step's BN-statistics calls in order (``bn_calls``, eager: no graph
-    replays a first step).
+    ``correctness.Recorder`` kept of the first step) and the first step's
+    calls of the program's functions that the cell's readers name, in order
+    (``recorded``: ``tracing.Calls``; eager: no graph replays a first step).
 
     Float32 work runs in float32, as the configuration states (PyTorch's
     default would run cuDNN's float32 convolutions, the classifier's among
@@ -122,10 +131,10 @@ def first_steps(cell: spec.Cell, seed: int, device, shrink: dict | None = None,
         fault(trainer)
     probe = tracing.Probe(trainer, annotate=False, cuda=device.type == "cuda")
     recorder = correctness.Recorder(trainer)
-    bn = tracing.BnCalls()
+    recorded = tracing.Calls(spec.recorded_functions(cell))
     feed.limit = 1
     trainer.train_epoch()
-    bn.restore()
+    recorded.restore()
     stage = recorder.take()
     grads = correctness.grad_norms(trainer.state.models, trainer.state.optimizers)
     feed.limit = correctness.STEPS - 1
@@ -134,7 +143,7 @@ def first_steps(cell: spec.Cell, seed: int, device, shrink: dict | None = None,
                                 "changes": correctness.change_norms(trainer.state.models, weights)})
     mark("checked_steps")
     return dict(cfg=cfg, ref_cfg=ref_cfg, pool=pool, feed=feed, trainer=trainer, probe=probe, tmp=tmp, prog=prog,
-                stage=stage, bn_calls=bn.calls)
+                stage=stage, recorded=recorded.calls)
 
 
 def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cuda", t0: float | None = None,
@@ -220,8 +229,8 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device="cud
     run = SimpleNamespace(
         cfg=cfg, bs=cfg.bs, iterations=iters, window_s=window_s, setup_s=setup_s, iter_ms=iter_ms,
         untraced_iter_ms=iter_ms[1:untraced] if untraced > 2 else [], host_gap_s=host_gaps[:max(untraced - 1, 0)],
-        trace=red, bn_calls=built["bn_calls"],
-        fps_valid=fps_valid, fps_shapes=spans.fps_shapes if spans else [], step_flops=counting.step_flops(cfg),
+        trace=red, recorded=built["recorded"],
+        fps_valid=fps_valid, fps_shapes=spans.fps_shapes if spans else [], step_flops=counting.step_flops(ref_cfg),
         on_card=on_card,
     )
     readings = {}
@@ -310,7 +319,7 @@ def main(argv=None, t0: float | None = None) -> int:
                       "span_calls": out["span_calls"],
                       "card": out["power_limit"], "memory_peak_bytes": res["device"]["memory_peak_bytes"],
                       "trace": {k: v for k, v in (out["trace"] or {}).items()
-                                if k not in ("device_ops", "idle_gaps", "kernel_times", "bn_kernels")}
+                                if k not in ("device_ops", "idle_gaps", "kernel_times", "iter_kernels")}
                       if out["trace"] else None}, default=str))
     print(json.dumps({"program": out["program"], "reference": out["reference"]}), file=sys.stderr)
     print("setup stages (s): " + ", ".join(f"{k} {v!r}" for k, v in out["setup_stages"].items()), file=sys.stderr)

@@ -4,12 +4,17 @@ imports nothing of the program; later changes to the program do not reach it).
 Structured configuration for the UDA engine: the port's copy of the JAX
 package's ``pointcloududa_tpu/config.py``, field for field. The checkpoint
 naming and JSON round trip of the original are left out: the benchmark
-neither names nor saves checkpoints.
+neither names nor saves checkpoints. One field is ahead of the port:
+``arch``, the generator's architecture (``reference/arch/<arch>.py``); the
+port gains the same name and default in the change that adds a second
+architecture.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from perfbench.reference import arch as _arch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +32,7 @@ class UDAConfig:
     fc_inch: int = 81  # point-head flatten width (81 @224, 121 @256)
 
     # generator
+    arch: str = "unet"  # ahead of the port: the file reference/arch/<arch>.py builds it
     filters: int = 32
     n_block: int = 4
     bottleneck_depth: int = 4
@@ -126,6 +132,7 @@ class UDAConfig:
     debug_nans: bool = False
 
     def __post_init__(self):
+        _arch.check(self.arch)
         if self.vert_t_every < 1:
             raise ValueError(
                 f"vert_t_every must be >= 1 (got {self.vert_t_every}); use "

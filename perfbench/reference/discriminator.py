@@ -17,7 +17,8 @@ import torch
 from torch import nn
 
 from perfbench.reference.init import conv_init
-from perfbench.reference.unet import Conv2d, leaky_relu, set_compute_dtype
+from perfbench.reference.numerics import Conv2d, set_compute_dtype
+from perfbench.reference.unet import leaky_relu
 
 
 class UncertaintyDiscriminator(nn.Module):

@@ -8,36 +8,37 @@ from __future__ import annotations
 import torch
 
 from perfbench.reference.config import UDAConfig
+from perfbench.reference.numerics import set_operand_rounding
 from perfbench.reference.preprocess import generators, make_device_preprocess
 from perfbench.reference.state import UDATrainState, build_models, build_optimizers
 from perfbench.reference.step import make_train_step
-from perfbench.reference.unet import set_operand_rounding
 
 NETS = ("gen", "d1", "d2", "d4")
 
 
-def model_shapes(cfg: UDAConfig) -> dict:
-    """``{net: {name: (shape, kind)}}`` of every parameter and buffer, from
-    models built on the meta device (nothing is allocated or drawn)."""
+def model_leaves(cfg: UDAConfig) -> dict:
+    """``{net: [(name, module, leaf, shape)]}`` of every parameter and buffer
+    in ``state_dict`` order, each with the module that holds it, from models
+    built on the meta device (nothing is allocated or drawn)."""
     with torch.device("meta"):
         models = build_models(cfg, None)
     out = {}
     for net, module in zip(NETS, models):
         if module is None:
             continue
-        kinds = {}
+        leaves = []
         for mod_name, mod in module.named_modules():
             for leaf, t in list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False)):
-                full = f"{mod_name}.{leaf}" if mod_name else leaf
-                kinds[full] = (tuple(t.shape), type(mod).__name__, leaf)
-        out[net] = kinds
+                leaves.append((f"{mod_name}.{leaf}" if mod_name else leaf, mod, leaf, tuple(t.shape)))
+        out[net] = leaves
     return out
 
 
 class ReferenceRun:
     """One training run of the reference on ``device`` from ``weights``
     (``{net: state_dict}``). ``operand_round``: the control's rounding of
-    every conv and linear operand (``unet.fp8_e4m3``), or None."""
+    every product's operands (``numerics.tf32``, ``numerics.fp8_e4m3``), or
+None."""
 
     def __init__(self, cfg: UDAConfig, weights: dict, device, operand_round=None, device_augment: bool = True):
         self.cfg = cfg

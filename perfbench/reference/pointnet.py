@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from perfbench.reference.init import torch_linear_init
-from perfbench.reference.unet import Conv1d, Dropout, Linear, TwinBatchNorm, set_compute_dtype
+from perfbench.reference.numerics import Conv1d, Linear, set_compute_dtype
+from perfbench.reference.unet import Dropout, TwinBatchNorm
 
 
 class Norm1d(TwinBatchNorm):

@@ -16,6 +16,9 @@ state is a container of both, plus the step count and the generator that
 draws dropout masks. Under ``compute_dtype="bfloat16"`` the modules compute
 in bfloat16 (``models/unet.py`` says where they round); the weights, their
 gradients and the optimisers' moments stay float32.
+
+One departure from the port: the generator is built by the architecture that
+``cfg.arch`` names (``reference/arch/<arch>.py``), the U-Net by default.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ from typing import Optional
 
 import torch
 
+from torch import nn
+
+from perfbench.reference import arch
 from perfbench.reference.config import UDAConfig
 from perfbench.reference.discriminator import UncertaintyDiscriminator
 from perfbench.reference.pointnet import PointNetCls
-from perfbench.reference.unet import SegmentationPointModel
 
 
 @dataclasses.dataclass
@@ -59,26 +64,12 @@ def check_config(cfg: UDAConfig) -> None:
         raise ValueError("the PyTorch port keeps torch's unbiased running variance (torch_bn_stats=True)")
 
 
-def build_generator(cfg: UDAConfig, generator: Optional[torch.Generator] = None) -> SegmentationPointModel:
-    """Instantiate the segmentation generator alone (what evaluation needs),
-    drawing its initial weights from ``generator`` (a CPU generator)."""
+def build_generator(cfg: UDAConfig, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Instantiate the segmentation generator alone (what evaluation needs)
+    by its architecture's module, drawing its initial weights from
+    ``generator`` (a CPU generator)."""
     check_config(cfg)
-    return SegmentationPointModel(
-        filters=cfg.filters,
-        in_channels=cfg.in_channels,
-        n_block=cfg.n_block,
-        bottleneck_depth=cfg.bottleneck_depth,
-        n_class=cfg.n_class,
-        pointnet=cfg.point_head,
-        fc_inch=cfg.fc_inch,
-        extpn=cfg.extpn,
-        batchnorm=cfg.batchnorm,
-        drop=cfg.drop,
-        heinit=cfg.heinit,
-        bn_kernel=cfg.bn_stats_impl == "pallas",
-        generator=generator,
-        compute_dtype=compute_dtype(cfg),
-    )
+    return arch.load(cfg.arch).build_generator(cfg, generator, compute_dtype(cfg))
 
 
 def build_models(cfg: UDAConfig, generator: Optional[torch.Generator] = None):

@@ -21,9 +21,9 @@ never applied, as in the reference, so parameter counts line up.
 ``compute_dtype`` (float32 or bfloat16) is the JAX models' compute dtype,
 with flax's rounding points written out rather than left to
 ``torch.autocast``: the parameters stay float32 (same names, same
-``state_dict``); every :class:`Conv2d` / :class:`Conv1d` / :class:`Linear`
+``state_dict``); every ``Conv2d`` / ``Conv1d`` / ``Linear`` (``numerics.py``)
 casts its input, weight and bias to the compute dtype and adds the bias as a
-separate op in it, as ``nn.Conv(dtype=...)`` does (:class:`_ComputeDtype`); a Python constant that
+separate op in it, as ``nn.Conv(dtype=...)`` does; a Python constant that
 meets an activation (the leaky slope, dropout's keep rate) is rounded to the
 activation's dtype first (:func:`weak_scalar`, JAX's weak typing); the
 BatchNorms compute in float32 and return the compute dtype; the classifier
@@ -40,8 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from perfbench.reference import numerics
 from perfbench.reference.init import conv_init, torch_linear_init
-from perfbench.reference.bn import batch_stats
+from perfbench.reference.numerics import Conv2d, Linear, set_compute_dtype
 
 LEAKY_SLOPE = 0.01  # torch nn.LeakyReLU() default, used by the whole generator
 
@@ -71,82 +72,6 @@ class LeakyReLU(nn.LeakyReLU):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return leaky_relu(x, self.negative_slope)
-
-
-class _ComputeDtype:
-    """A conv or linear layer that computes in ``compute_dtype`` (set by
-    :func:`set_compute_dtype`) as flax's ``nn.Conv`` / ``nn.Dense(dtype=...)``
-    do: input, weight and bias cast to it, the bias added after the product
-    as an op of its own (a bias fused into the convolution rounds once where
-    flax rounds twice). In float32 the layer is PyTorch's own."""
-
-    compute_dtype = torch.float32
-    operand_round = None  # the control's lower precision (set_operand_rounding); None in the reference
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.compute_dtype
-        if dt == torch.float32 and self.operand_round is None:
-            return super().forward(x)
-        xc, wc = x.to(dt), self.weight.to(dt)
-        if self.operand_round is not None:
-            xc, wc = self.operand_round(xc), self.operand_round(wc)
-        if isinstance(self, nn.Linear):
-            y, channels = F.linear(xc, wc), (-1,)
-        else:  # channels on dim 1, then the spatial dims
-            y, channels = self._conv_forward(xc, wc, None), (-1,) + (1,) * (x.dim() - 2)
-        return y if self.bias is None else y + self.bias.to(dt).view(channels)
-
-
-class Conv2d(_ComputeDtype, nn.Conv2d):
-    pass
-
-
-class Conv1d(_ComputeDtype, nn.Conv1d):
-    pass
-
-
-class Linear(_ComputeDtype, nn.Linear):
-    pass
-
-
-def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """Every :class:`Conv2d`, :class:`Conv1d` and :class:`Linear` under
-    ``module`` computes in ``dtype`` from now on (see :class:`_ComputeDtype`)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {dtype}")
-    for m in module.modules():
-        if isinstance(m, _ComputeDtype):
-            m.compute_dtype = dtype
-
-
-def fp8_e4m3(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to float8 e4m3 with one scale for the tensor (its largest
-    magnitude maps to e4m3's largest finite value, 448), returned in ``t``'s
-    dtype. The gradient passes straight through: the rounded operands enter
-    the product, and the backward runs in ``t``'s dtype on them."""
-    amax = t.detach().abs().amax().to(torch.float32).clamp_min(1e-30)
-    scale = 448.0 / amax
-    rounded = ((t.detach().to(torch.float32) * scale).to(torch.float8_e4m3fn).to(torch.float32) / scale).to(t.dtype)
-    return t + (rounded - t.detach())
-
-
-def tf32(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (float32) rounded to TF32, the tensor cores' 10-bit mantissa
-    (to nearest, ties away from zero), returned in float32. The gradient
-    passes straight through, as :func:`fp8_e4m3`'s does."""
-    bits = t.detach().to(torch.float32).contiguous().view(torch.int32)
-    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32).to(t.dtype)
-    return t + (rounded - t.detach())
-
-
-def set_operand_rounding(module: nn.Module, fn) -> None:
-    """Every :class:`Conv2d`, :class:`Conv1d` and :class:`Linear` under
-    ``module`` rounds its input and weight with ``fn`` before the product
-    (the control: :func:`fp8_e4m3` under bfloat16, :func:`tf32` under
-    float32), or not, with ``None``."""
-    for m in module.modules():
-        if isinstance(m, _ComputeDtype):
-            m.operand_round = fn
 
 
 class Dropout(nn.Module):
@@ -189,7 +114,7 @@ class TwinBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = batch_stats(x.contiguous(), use_kernel=self.bn_kernel)
+            mean, var = numerics.batch_stats(x.contiguous(), use_kernel=self.bn_kernel)
             with torch.no_grad():
                 n = x.numel() // x.shape[1]
                 self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)

@@ -2,9 +2,11 @@
 
 A cell (an entry of ``workloads``) names a configuration, whose file the
 ``configs`` entry gives, and a traffic mix, ``perfbench/traffic/<mix>.json``;
-every metric it reports has a reader, ``perfbench/metrics/<metric>.py``; the
-limits that decide ``correct`` are ``perfbench/limits/<cell>.json``. A new
-cell, mix or metric is new files: nothing here changes.
+the configuration's ``arch`` (the U-Net where it names none) names its
+generator, ``perfbench/reference/arch/<arch>.py``; every metric it reports
+has a reader, ``perfbench/metrics/<metric>.py``; the limits that decide
+``correct`` are ``perfbench/limits/<cell>.json``. A new cell, mix, metric or
+architecture is new files: nothing here changes.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import importlib.util
 import json
 import os
 from dataclasses import dataclass, field
+
+from perfbench.reference import arch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -69,6 +73,10 @@ def resolve(workload: str, bench: dict | None = None) -> Cell:
         raise UnknownName(f"workload {workload!r} names the configuration {w['config']!r}, which BENCHMARK.json lacks")
     cfg = _json(os.path.join(ROOT, configs[w["config"]]["file"]), f"configuration {w['config']!r}")
     traffic = _json(os.path.join(HERE, "traffic", f"{w['traffic']}.json"), f"traffic {w['traffic']!r}")
+    try:
+        arch.check({**cfg["uda_config"], **traffic.get("uda_config", {})}.get("arch", "unet"))
+    except arch.UnknownArch as e:
+        raise UnknownName(f"configuration {w['config']!r}: {e}") from None
     cell = Cell(workload, int(w["chips"]), w["config"], cfg, w["traffic"], traffic,
                 [m for m in bench["end_to_end"] if _applies(m, workload)],
                 [m for m in bench["per_layer"] if _applies(m, workload)],
@@ -79,10 +87,27 @@ def resolve(workload: str, bench: dict | None = None) -> Cell:
     return cell
 
 
-def reader(metric: str):
-    """The ``read(run)`` function of ``perfbench/metrics/<metric>.py``."""
+def reader_module(metric: str):
+    """The module ``perfbench/metrics/<metric>.py``."""
     spec = importlib.util.spec_from_file_location(f"perfbench_metric_{metric.replace('.', '_').replace('-', '_')}",
                                                   reader_path(metric))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def reader(metric: str):
+    """The ``read(run)`` function of ``perfbench/metrics/<metric>.py``."""
+    return reader_module(metric).read
+
+
+def recorded_functions(cell: Cell) -> list:
+    """The program's functions whose calls set-up's first step records for
+    the cell's readers: the union, in the readers' order, of the dotted names
+    (``package.module.function``) each reader lists in its ``RECORD``."""
+    names: list = []
+    for m in cell.end_to_end + cell.per_layer:
+        for name in getattr(reader_module(m["name"]), "RECORD", ()):
+            if name not in names:
+                names.append(name)
+    return names

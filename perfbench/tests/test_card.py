@@ -77,7 +77,8 @@ def test_a_graph_replay_reads_as_the_same_bn_calls_launched_eagerly(card):
         bn_kernel.stats_forward(x)
         bn_kernel.stats_backward(x, g_mean, g_meansq)
 
-    calls = tracing.BnCalls()
+    bn = spec.reader_module("kernels.roofline.bn_stats")
+    calls = tracing.Calls(bn.RECORD)
     body()  # eager, recorded: the sequence a set-up step gives the reader
     calls.restore()
     graph = torch.cuda.CUDAGraph()
@@ -85,11 +86,10 @@ def test_a_graph_replay_reads_as_the_same_bn_calls_launched_eagerly(card):
         body()
     n = 20
     eager, replayed = _profiled(body, n), _profiled(graph.replay, n)
-    read = spec.reader("kernels.roofline.bn_stats")
-    shares = [read(SimpleNamespace(trace=red, bn_calls=calls.calls, cfg=cfg)) for red in (eager, replayed)]
+    shares = [bn.read(SimpleNamespace(trace=red, recorded=calls.calls, cfg=cfg)) for red in (eager, replayed)]
     assert None not in shares and abs(shares[1] / shares[0] - 1) < 0.05, shares
     assert 0 < shares[1] <= 105
     assert eager["launches_per_iter"] == 2 and replayed["launches_per_iter"] == 1
-    bn_ms = sum(ns for it in replayed["bn_kernels"] for _, ns in it) / 1e6 / n
+    bn_ms = sum(ns for it in replayed["iter_kernels"] for name, ns in it if bn.kernel_kind(name)) / 1e6 / n
     assert replayed["step_device_ms"] == pytest.approx(bn_ms, rel=1e-6) and bn_ms > 0
     assert abs(replayed["step_device_ms"] / eager["step_device_ms"] - 1) < 0.05

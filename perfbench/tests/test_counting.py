@@ -27,8 +27,11 @@ def test_step_flops_equal_the_flop_counter_on_the_ports_step(cell):
     assert fc.get_total_flops() == counting.step_flops(cfg)
 
 
-def test_full_size_step_flops():
-    got = {c: counting.step_flops(harness.configs(spec.resolve(c), 0)[0]) for c in ("mscmrseg-d124.aug2", "mmwhs-d124.noaug")}
+@pytest.mark.parametrize("side", [0, 1], ids=["port_config", "reference_config"])
+def test_full_size_step_flops(side):
+    """The counts of the U-Net cells, the same from the port's configuration
+    and from the reference's (which the harness counts from)."""
+    got = {c: counting.step_flops(harness.configs(spec.resolve(c), 0)[side]) for c in ("mscmrseg-d124.aug2", "mmwhs-d124.noaug")}
     assert got == {"mscmrseg-d124.aug2": 3439439547776.0, "mmwhs-d124.noaug": 4554278905216.0}
 
 
@@ -57,10 +60,11 @@ def test_roofline_readers_stay_within_their_bounds_time():
     nb, ops = counting.bn_stats_work((16, 32, 256, 256), 2, False)
     exact = counting.bound_s(nb, ops)[0] * 1e9
     fwd = "void stats_forward_kernel<__nv_bfloat16, 8>(...)"
+    forward = spec.reader_module("kernels.roofline.bn_stats").RECORD[0]
     run = SimpleNamespace(cfg=cfg, fps_valid=[16 * 27552.0], fps_shapes=[(16, 196608, 300)],
-                          bn_calls=[("bn_fwd", full, "bfloat16"), ("bn_fwd", (16, 64, 128, 128), "bfloat16")],
+                          recorded=[(forward, ((full, "bfloat16"),)), (forward, (((16, 64, 128, 128), "bfloat16"),))],
                           trace={"kernel_times": [("bench.kernel.fps.0", "fps_kernel", 0.6e6)],
-                                 # the second is not at the full-resolution level
-                                 "bn_kernels": [[(fwd, 2 * exact), (fwd, 1.0)]]})
+                                 # the second is not at the level with the largest input
+                                 "iter_kernels": [[(fwd, 2 * exact), ("fps_kernel", 0.6e6), (fwd, 1.0)]]})
     assert spec.reader("kernels.roofline.bn_stats")(run) == pytest.approx(50.0)
     assert 2.0 < spec.reader("kernels.roofline.fps")(run) < 5.0

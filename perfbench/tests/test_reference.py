@@ -6,13 +6,14 @@ limits."""
 import pytest
 import torch
 
-from perfbench import correctness, harness
+from perfbench import correctness, harness, spec
 from perfbench.feed import make_pool
 from perfbench.reference.iteration import ReferenceRun
 from perfbench.tests.conftest import SHRINK, small_cell
 from perfbench.weights import make_weights
 
 CELLS = ["mscmrseg-d124.aug2", "mscmrseg-d124.heavy", "mmwhs-d124.light-fps", "mmwhs-d124.noaug"]
+BN = spec.reader_module("kernels.roofline.bn_stats")
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -73,12 +74,14 @@ def test_the_kernels_plain_copies_equal_the_ports():
 def test_set_up_records_the_bn_calls_of_the_first_step_in_order():
     """The sequence ``kernels.roofline.bn_stats`` matches a traced
     iteration's BN-statistics kernels to: each BatchNorm's forward call at
-    its level's shape, then the backward calls, full resolution in both."""
+    its level's shape, then the backward calls, full resolution in both,
+    which is the level the reader takes."""
     cell, raw_size = small_cell("mscmrseg-d124.aug2")
     built = harness.first_steps(cell, 11, "cpu", shrink=SHRINK, raw_size=raw_size)
     built["trainer"].writer.close()
     built["tmp"].cleanup()
-    cfg, calls = built["cfg"], built["bn_calls"]
+    cfg, seq = built["cfg"], BN.calls(built["recorded"])
+    calls = [(kind, shape, dtype) for (kind, dtype), shape in seq]
     levels = {(cfg.bs, cfg.filters * 2**i, cfg.crop_size // 2**i, cfg.crop_size // 2**i) for i in range(cfg.n_block)}
     kinds = [k for k, _, _ in calls]
     assert kinds.count("bn_fwd") == kinds.count("bn_bwd") > 0
@@ -87,3 +90,31 @@ def test_set_up_records_the_bn_calls_of_the_first_step_in_order():
     assert {d for _, _, d in calls} == {cfg.compute_dtype}
     full = (cfg.bs, cfg.filters, cfg.crop_size, cfg.crop_size)
     assert {k for k, s, _ in calls if s == full} == {"bn_fwd", "bn_bwd"}
+    assert BN.level(seq) == {full}
+
+
+@pytest.mark.parametrize("name,full", [("mscmrseg-d124.aug2", (16, 32, 224, 224)),
+                                       ("mmwhs-d124.noaug", (16, 32, 256, 256))])
+def test_the_bn_rooflines_level_at_the_cells_size(name, full, monkeypatch):
+    """At the cells' own size (the port's generator on the meta device, its
+    BN wrappers' plain versions in their place), the level with the largest
+    input among the recorded calls is the full-resolution one."""
+    from pointcloududa_torch.ops import bn_kernel
+    from pointcloududa_torch.train.state import build_generator
+
+    from perfbench import tracing
+
+    monkeypatch.setattr(bn_kernel, "stats_forward", bn_kernel.stats_forward_plain)
+    monkeypatch.setattr(bn_kernel, "stats_backward", bn_kernel.stats_backward_plain)
+    cell = spec.resolve(name)
+    cfg = harness.configs(cell, 0)[0]
+    with torch.device("meta"):
+        gen = build_generator(cfg)
+        x = torch.empty((cfg.bs, cfg.crop_size, cfg.crop_size, cfg.in_channels))
+    calls = tracing.Calls(spec.recorded_functions(cell))
+    try:
+        gen(x, None)[0].sum().backward()
+    finally:
+        calls.restore()
+    seq = BN.calls(calls.calls)
+    assert len(seq) == 32 and BN.level(seq) == {full}

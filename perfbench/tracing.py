@@ -6,17 +6,19 @@ stream right after each step (read after the window), the step's metrics,
 and, in a traced run, ``record_function`` ranges ``bench.preprocess`` and
 ``bench.step``. ``KernelSpans`` adds, in a traced run only, a range around
 each call of the FPS wrapper, so its roofline knows the call's valid
-candidates. ``BnCalls`` records, in set-up's first step (eager), the shape of
-every BN-statistics call in order; a traced iteration's BN-statistics kernels
-are matched to that sequence by their order on the device (``match_bn``), so
-their work is known however they were launched.
+candidates. ``Calls`` records, in set-up's first step (eager), the argument
+shapes of every call of the program's functions that the cell's readers name
+(their ``RECORD``), in order; a reader pairs a traced iteration's kernels of
+one kind with that sequence by their order on the device (``match_calls``),
+so their work is known however they were launched.
 
 ``reduce_trace`` turns the raw profiler events of a slice of iterations into
 the per-layer readings (``reduce_events``, a pure function of the event
-list): device time by the span that launched it, the union of device
-intervals (busy time), the launches, each iteration's BN-statistics kernels,
-the largest device operations and the longest idle gaps with the host span
-that was running meanwhile. A device operation replayed from a CUDA graph
+list): device time by the benchmark's span that launched it and by the
+innermost of the program's ``uda.*`` spans, the union of device intervals
+(busy time), the launches, each iteration's kernels in device order, the
+largest device operations and the longest idle gaps with the host span that
+was running meanwhile. A device operation replayed from a CUDA graph
 carries the correlation id of the ``cudaGraphLaunch`` that ran the graph: it
 is credited, like a kernel launched eagerly, to the range around that call,
 and the graph's launch counts as one launch.
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import importlib
 import time
 
 import torch
@@ -34,7 +37,7 @@ from perfbench.correctness import COUNTERS
 
 PRE, STEP = "bench.preprocess", "bench.step"
 KERNEL_SPAN = "bench.kernel."
-BN_KERNELS = {"stats_forward_kernel": "bn_fwd", "stats_backward_kernel": "bn_bwd"}  # the program's kernel names
+PROGRAM_SPAN = "uda."  # the program's own ranges (pointcloududa_torch/utils/timer.py)
 
 
 def _swap(mod, name: str, make):
@@ -118,54 +121,61 @@ class KernelSpans:
         self.restore = _swap(fps_kernel, "fps", make)
 
 
-class BnCalls:
-    """While installed, ``calls`` gets ``(kind, shape, dtype)`` of each call
-    of the port's BN-statistics wrappers, in order (kind ``bn_fwd`` or
-    ``bn_bwd``, dtype ``bfloat16`` or ``float32``). ``restore`` puts the
-    wrappers back."""
+class Calls:
+    """While installed, ``calls`` gets ``(name, args)`` of each call of the
+    program's functions ``names`` (dotted: ``package.module.function``), in
+    order: ``args`` holds, for each positional argument, ``(shape, dtype)``
+    of a tensor (``dtype`` as ``float32``, ``bfloat16``) or the value
+    itself. A name the program lacks records nothing, so a reader whose
+    kernel a later program drops reads nothing. ``restore`` puts the
+    functions back."""
 
-    def __init__(self):
-        from pointcloududa_torch.ops import bn_kernel
-
+    def __init__(self, names):
         self.calls: list = []
+        self._put_back = []
+        for name in names:
+            module, function = name.rsplit(".", 1)
+            try:
+                mod = importlib.import_module(module)
+            except ImportError:
+                continue
+            if hasattr(mod, function):
+                self._put_back.append(_swap(mod, function, self._recorded(name)))
 
-        def recorded(kind):
-            def make(orig):
-                def call(x, *args):
-                    self.calls.append((kind, tuple(x.shape), str(x.dtype).split(".")[-1]))
-                    return orig(x, *args)
-                return call
-            return make
-
-        self._put_back = [_swap(bn_kernel, "stats_forward", recorded("bn_fwd")),
-                          _swap(bn_kernel, "stats_backward", recorded("bn_bwd"))]
+    def _recorded(self, name):
+        def make(orig):
+            def call(*args, **kwargs):
+                self.calls.append((name, tuple(_described(a) for a in args)))
+                return orig(*args, **kwargs)
+            return call
+        return make
 
     def restore(self) -> None:
         for put_back in reversed(self._put_back):
             put_back()
 
 
-def bn_kind(kernel: str) -> str | None:
-    """``bn_fwd`` / ``bn_bwd`` for a BN-statistics kernel's name, else ``None``."""
-    for name, kind in BN_KERNELS.items():
-        if name in kernel:
-            return kind
-    return None
+def _described(a):
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), str(a.dtype).split(".")[-1]
+    return a
 
 
-def match_bn(kernels: list, calls: list):
-    """Each of one iteration's BN-statistics kernels, ``[(name, ns)]`` in
-    their order on the device, paired with set-up's call in the same place
-    (``BnCalls.calls``): ``[(kind, shape, dtype, ns)]``; or, where the two
-    sequences differ in length, direction or dtype, a string saying where."""
-    if len(kernels) != len(calls):
-        return f"{len(kernels)} BN-statistics kernels where set-up's step made {len(calls)} calls"
+def match_calls(kernels: list, calls: list, kind_of):
+    """One iteration's kernels of one kind, ``[(name, ns)]`` in their order on
+    the device, each paired with set-up's call in the same place: ``calls``
+    is ``[(kind, record)]`` in call order, ``kind_of(kernel name)`` the kind
+    of a kernel (``None``: not one of these). ``[(kind, record, ns)]``; or,
+    where the two sequences differ in length or kind, a string saying where."""
+    seen = [(kind_of(name), ns) for name, ns in kernels]
+    seen = [(kind, ns) for kind, ns in seen if kind is not None]
+    if len(seen) != len(calls):
+        return f"{len(seen)} kernels where set-up's step made {len(calls)} calls"
     out = []
-    for j, ((name, ns), (kind, shape, dtype)) in enumerate(zip(kernels, calls)):
-        seen = (bn_kind(name), "bfloat16" if "bfloat16" in name else "float32")
-        if seen != (kind, dtype):
-            return f"kernel {j} is {seen[0]} {seen[1]} where set-up's call {j} was {kind} {dtype}"
-        out.append((kind, shape, dtype, ns))
+    for j, ((got, ns), (want, record)) in enumerate(zip(seen, calls)):
+        if got != want:
+            return f"kernel {j} is {got} where set-up's call {j} was {want}"
+        out.append((want, record, ns))
     return out
 
 
@@ -209,6 +219,25 @@ def _containing(spans, t):
     return best
 
 
+def _innermost(spans):
+    """A function of ``t`` giving the name of the innermost of ``spans``
+    (``(name, start, end)``, nested: the program opens its spans on one
+    thread) that contains ``t``, or ``None``."""
+    spans = sorted(spans, key=lambda sp: (sp[1], -sp[2]))
+    starts = [s for _, s, _ in spans]
+
+    def find(t):
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0:  # the latest-starting span that still contains t is the innermost
+            name, _, e = spans[i]
+            if e >= t:
+                return name
+            i -= 1
+        return None
+
+    return find
+
+
 def is_launch(name: str) -> bool:
     """A runtime or driver call that launches device work: a kernel
     (``cudaLaunchKernel*``, ``cuLaunchKernel*``) or a CUDA graph
@@ -227,7 +256,10 @@ def reduce_events(ev: list, iterations: int) -> dict | None:
     ``bench.preprocess`` to the end of the last device operation launched by
     the last of those iterations' steps. Device time goes to the innermost
     ``bench.*`` range around the call that launched it, a kernel's or a
-    graph's; ``bn_kernels`` holds each iteration's BN-statistics kernels in
+    graph's, and to the innermost ``uda.*`` range around it, whichever thread
+    launched it (``span_device_ms``: ms an iteration by span, the time of an
+    operation in a nested span counted in that span alone); ``iter_kernels``
+    holds each iteration's launched device operations, ``(name, ns)`` in
     their order on the device. ``None`` where the trace holds no device
     operation."""
     spans = sorted((n, s, e) for n, dev, s, e, _, _, ann in ev if not dev and n in (PRE, STEP))
@@ -239,6 +271,7 @@ def reduce_events(ev: list, iterations: int) -> dict | None:
     annotations = {n for n, dev, s, e, _, _, ann in ev if not dev and ann} | {PRE, STEP}
     launches = {c: (n, s) for n, dev, s, e, c, _, ann in ev if not dev and n.startswith("cu")}
     kernel_spans = [(n, s, e) for n, dev, s, e, _, _, _ in ev if not dev and n.startswith(KERNEL_SPAN)]
+    program_span = _innermost([(n, s, e) for n, dev, s, e, _, _, _ in ev if not dev and n.startswith(PROGRAM_SPAN)])
     ops, slice_end = [], t0
     for n, dev, s, e, c, _, _ in ev:
         if not dev or n in annotations or n.startswith("ProfilerStep"):
@@ -252,10 +285,11 @@ def reduce_events(ev: list, iterations: int) -> dict | None:
         return None
     busy, gaps = _union([(max(s, t0), min(e, slice_end)) for _, s, e, _, _ in ops if e > t0])
     by_span = {PRE: 0, STEP: 0}
+    by_program_span: dict = {}
     by_name: dict = {}
     kernel_times = []
     starts = [sp[1] for sp in pre[:iterations]]
-    bn = [[] for _ in range(iterations)]
+    per_iter = [[] for _ in range(iterations)]
     for n, s, e, at, launched in ops:
         by_name[n] = by_name.get(n, 0) + (e - s)
         if not launched:  # the feeder thread's copies are no layer's
@@ -263,11 +297,13 @@ def reduce_events(ev: list, iterations: int) -> dict | None:
         span = _containing(pre + steps, at)
         if span is not None:
             by_span[span[0]] += e - s
+        span = program_span(at)
+        if span is not None:
+            by_program_span[span] = by_program_span.get(span, 0) + (e - s)
         span = _containing(kernel_spans, at)
         if span is not None:
             kernel_times.append((span[0], n, e - s))
-        if bn_kind(n) is not None:
-            bn[bisect.bisect_right(starts, at) - 1].append((s, n, e - s))
+        per_iter[bisect.bisect_right(starts, at) - 1].append((s, n, e - s))
     n_launch = sum(1 for n, dev, s, e, _, _, _ in ev if not dev and is_launch(n) and t0 <= s <= last_step_end)
     labelled = []
     for gs, ge in gaps:
@@ -284,7 +320,8 @@ def reduce_events(ev: list, iterations: int) -> dict | None:
         "launches_per_iter": n_launch / iterations,
         "device_ops": [[n[:120], t / 1e9] for n, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]],
         "idle_gaps": [[n, t / 1e9] for n, t in sorted(labelled, key=lambda kv: -kv[1])[:10]],
+        "span_device_ms": {n: t / 1e6 / iterations for n, t in sorted(by_program_span.items())},
         "kernel_times": kernel_times,
-        "bn_kernels": [[(n, ns) for _, n, ns in sorted(it)] for it in bn],
+        "iter_kernels": [[(n, ns) for _, n, ns in sorted(it)] for it in per_iter],
         "n_events": len(ev),
     }

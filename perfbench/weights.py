@@ -1,10 +1,18 @@
 """The initial weights of every network, made on the device from the seed
 in a few large draws, and handed alike to the program and the reference.
 
-The distributions are the reference models' initialisers
+Each leaf (parameter or buffer) is drawn by the first rule, in
+``INIT_RULES`` of the generator's architecture (``reference/arch/<arch>.py``)
+and then in ``BASE_RULES``, whose module type the leaf's module is an
+instance of and that covers the leaf's name; a leaf that no rule covers
+raises. A rule is ``rule(module, leaf, cfg) -> (draw, scale) | None``, with
+draw ``normal`` (N(0, scale)), ``uniform`` (U(-scale, scale)), ``zeros``,
+``ones`` or ``count`` (an int64 zero).
+
+The base rules are the reference models' initialisers
 (``reference/init.py``): a 2-D convolution's weight N(0, 0.02) (He's normal
 under ``heinit``) and zero bias; a 1-D convolution's and a linear layer's
-weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)); a BatchNorm's scale 1 and
+weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)); a norm's scale 1 and
 shift 0, running mean 0 and variance 1.
 """
 
@@ -13,30 +21,55 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
 
-from perfbench.reference.iteration import model_shapes
+from perfbench.reference import arch
+from perfbench.reference.iteration import model_leaves
+from perfbench.reference.unet import TwinBatchNorm
+
+
+def _conv2d(module, leaf, cfg):
+    if leaf == "weight":
+        fan_in = math.prod(module.weight.shape[1:])
+        return "normal", math.sqrt(2.0 / fan_in) if cfg.heinit else 0.02
+    if leaf == "bias":
+        return "zeros", 0.0
+    return None
+
+
+def _torch_default(module, leaf, cfg):
+    if leaf in ("weight", "bias"):
+        return "uniform", 1.0 / math.sqrt(math.prod(module.weight.shape[1:]))
+    return None
+
+
+_NORM = {"weight": ("ones", 0.0), "bias": ("zeros", 0.0), "running_mean": ("zeros", 0.0),
+         "running_var": ("ones", 0.0), "num_batches_tracked": ("count", 0.0)}
+
+
+def _norm(module, leaf, cfg):
+    return _NORM.get(leaf)
+
+
+BASE_RULES = (
+    (nn.Conv2d, _conv2d),
+    ((nn.Conv1d, nn.Linear), _torch_default),
+    ((TwinBatchNorm, nn.modules.batchnorm._NormBase, nn.GroupNorm, nn.LayerNorm), _norm),
+)
 
 
 def _plan(cfg) -> list:
-    """[(net, name, shape, draw, scale)] with draw in normal / uniform / zeros
-    / ones / count."""
+    """[(net, name, shape, draw, scale)] in ``state_dict`` order."""
+    rules = tuple(getattr(arch.load(cfg.arch), "INIT_RULES", ())) + BASE_RULES
     plan = []
-    for net, leaves in model_shapes(cfg).items():
-        for name, (shape, kind, leaf) in leaves.items():
-            if leaf == "num_batches_tracked":
-                plan.append((net, name, shape, "count", 0.0))
-            elif kind == "Conv2d" and leaf == "weight":
-                fan_in = math.prod(shape[1:])
-                plan.append((net, name, shape, "normal", math.sqrt(2.0 / fan_in) if cfg.heinit else 0.02))
-            elif kind == "Conv2d":
-                plan.append((net, name, shape, "zeros", 0.0))
-            elif kind in ("Conv1d", "Linear"):
-                weight_shape = leaves[name.rsplit(".", 1)[0] + ".weight"][0]
-                plan.append((net, name, shape, "uniform", 1.0 / math.sqrt(math.prod(weight_shape[1:]))))
-            elif leaf in ("weight", "running_var"):
-                plan.append((net, name, shape, "ones", 0.0))
-            else:  # a norm's shift, running mean
-                plan.append((net, name, shape, "zeros", 0.0))
+    for net, leaves in model_leaves(cfg).items():
+        for name, module, leaf, shape in leaves:
+            got = next((r for r in (rule(module, leaf, cfg) for kind, rule in rules if isinstance(module, kind))
+                        if r is not None), None)
+            if got is None:
+                raise ValueError(f"{net}.{name}: no initial-weight rule covers the leaf {leaf!r} of a "
+                                 f"{type(module).__name__}")
+            plan.append((net, name, shape) + got)
     return plan
 
 
