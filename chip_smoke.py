@@ -45,11 +45,12 @@ into the git-ignored ``build/pointcloududa_torch/``), then runs, in order:
       forward in clusters of 1, 2, 4, 8 and the backward in one wave at the
       32-channel bf16 shapes;
   (c) the MS-CMRSeg triple-adversary train step (generator + D1 + D2 + D4,
-      bs 16, 224^2, float32, both kernels on): two steps on synthetic
-      batches, every metric finite, every kernel launched, the BatchNorm
-      inputs of the shapes phase (b) checked, one step against
-      the plain implementations from the same weights, median step time and
-      peak memory;
+      bs 16, 224^2, float32, both kernels on): four steps on synthetic
+      batches (the first eager, the second captures both CUDA graphs of the
+      step, the last two replay them), every metric finite, every kernel
+      launched, the BatchNorm inputs of the shapes phase (b) checked, one
+      step against the plain implementations from the same weights, the
+      median replayed step's time beside the capture's, and peak memory;
   (d) one evaluation step;
   (e) farthest-point sampling: the kernel against its plain version, bit for
       bit, on B=16 masks of 256^2 with k=300 (filled ellipses; per-pixel
@@ -231,8 +232,11 @@ operations, and a library call's time where one computes the same function;
 ``by_path`` holds each path's launches (``evaluation``, ``evaluation_bf16``: 0
 for every kernel)
 and, where a kernel's shapes differ
-between the paths, its numbers at that path's largest shape);
-the last line is
+between the paths, its numbers at that path's largest shape). A replayed
+CUDA graph calls no kernel wrapper: a path whose train steps replay counts
+each replay's launches as its capture recorded them, with a torch.profiler
+trace of the card as witness (``_CardLaunches``); the
+last line is
 ``{"ok": true, "device": {...}}``. There is no CPU fallback: without a CUDA
 device the script exits non-zero and prints no result.
 
@@ -260,7 +264,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-STEPS = 2  # the second is the steady one that is timed
+# the first runs eagerly, the second captures the step's CUDA graphs and replays them, the last two replay them
+STEPS = 4
 MMWHS_STEPS = 4
 # the training run of phase (g): -bs, -ns, -vert_t_every and the slices per split
 RUN_BS, RUN_NS, RUN_VERT_T_EVERY = 16, 64, 2
@@ -867,6 +872,131 @@ def _record_launches(rec, path: str, counts: dict, expected: set) -> None:
         rec[name]["launches"] = rec[name].get("launches", 0) + n
 
 
+# the port kernels' names in a trace of the card, and their kernel-table rows (a BN-statistics kernel's bfloat16
+# instantiation, whose name holds __nv_bfloat16, takes the _bf16 row)
+TRACE_ROWS = {"fused_forward_kernel": "chamfer_forward", "nn_kernel": "chamfer_nn_forward",
+              "side_grad_kernel": "chamfer_backward", "stats_forward_kernel": "bn_stats_forward",
+              "stats_backward_kernel": "bn_stats_backward", "fps_kernel": "fps"}
+TRACE_NAME = re.compile(r"\b(" + "|".join(TRACE_ROWS) + r")\b")
+# train steps between two traces of _CardLaunches.every: a trace keeps a bounded number of records
+STEPS_A_TRACE = 25
+
+
+def _trace_row(name: str):
+    """The kernel-table row of a kernel named ``name`` in a trace, or None."""
+    found = TRACE_NAME.search(name)
+    if found is None:
+        return None
+    row = TRACE_ROWS[found.group(1)]
+    return row + "_bf16" if row.startswith("bn_") and "bfloat16" in name else row
+
+
+class _CardLaunches:
+    """``with _CardLaunches(torch) as launched:``: the port kernels' launches
+    on the card while the block runs, in ``launched.counts`` by kernel-table
+    row (``_launch_counts``'s keys) when it ends, eager launches and those
+    replayed from a CUDA graph alike. A replay calls no kernel wrapper: the
+    wrappers' counters, reset when the block begins, count the eager calls
+    and the calls a capture records, and each step graph
+    (``step_graph.CudaGraph``) captured in the block adds what its capture
+    recorded at each replay. A torch.profiler trace of the card over the
+    block (``traced``) witnesses the launches: it may miss some (in one run
+    of this script, 1 of a step's 67 launches in phase (l), 27 of 10,057 in
+    ``smoke_uda``'s 150 steps) and never holds more, so it must hold at most
+    ``counts`` and miss at most 1% of all (or one launch). ``every()`` makes the train steps that
+    ``make_train_step`` makes in the block end a trace and begin the next
+    every ``STEPS_A_TRACE`` steps, for a run longer than one trace holds
+    (``traces`` counts them)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.counts = dict.fromkeys(_launch_counts(), 0)
+        self.traced = dict(self.counts)
+        self.captured, self.replayed = dict(self.counts), dict(self.counts)
+        self.traces = 0
+        self._prof = None
+        self._restore = []
+
+    def __enter__(self):
+        from pointcloududa_torch.train import step_graph
+
+        graph = step_graph.CudaGraph
+        init, replay = graph.__init__, graph.replay
+
+        def counted_init(g, body, generator, pool=None):
+            before = _launch_counts()
+            init(g, body, generator, pool)
+            g.recorded = {k: n - before[k] for k, n in _launch_counts().items()}
+            for k, n in g.recorded.items():
+                self.captured[k] += n
+
+        def counted_replay(g):
+            out = replay(g)
+            for k, n in getattr(g, "recorded", {}).items():  # a graph captured outside the block is not counted
+                self.replayed[k] += n
+            return out
+
+        graph.__init__, graph.replay = counted_init, counted_replay
+        self._restore.append(lambda: (setattr(graph, "__init__", init), setattr(graph, "replay", replay)))
+        _reset_launches()
+        self._begin()
+        return self
+
+    def _begin(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def _end(self):
+        self.torch.cuda.synchronize()
+        self._prof.stop()
+        self.traces += 1
+        for e in self._prof.profiler.kineto_results.events():
+            row = _trace_row(e.name()) if e.device_type() == self.torch.autograd.DeviceType.CUDA else None
+            if row is not None:
+                self.traced[row] += 1
+        self._prof = None
+
+    def every(self):
+        from pointcloududa_torch.train import step as step_module
+
+        make = step_module.make_train_step
+
+        def cutting(*args, **kwargs):
+            step, calls = make(*args, **kwargs), [0]
+
+            def cut_step(*a, **kw):
+                calls[0] += 1
+                if calls[0] % STEPS_A_TRACE == 0:  # between two steps: nothing is in flight
+                    self._end()
+                    self._begin()
+                return step(*a, **kw)
+
+            return cut_step
+
+        step_module.make_train_step = cutting
+        self._restore.append(lambda: setattr(step_module, "make_train_step", make))
+
+    def __exit__(self, kind, value, tb):
+        for restore in self._restore:
+            restore()
+        self._end()
+        if kind is None:
+            called = _launch_counts()
+            self.counts = {k: n - self.captured[k] + self.replayed[k] for k, n in called.items()}
+            more = {k: (n, self.counts[k]) for k, n in self.traced.items() if n > self.counts[k]}
+            _require(not more, f"the trace holds more launches than ran (traced, ran): {more}")
+            missed = sum(self.counts.values()) - sum(self.traced.values())
+            _require(missed <= max(1, sum(self.counts.values()) // 100),
+                     f"the trace misses {missed} launches: traced {self.traced}, ran {self.counts}")
+            if missed:
+                print(f"  note: the profiler's trace missed {missed} of {sum(self.counts.values())} port-kernel launches "
+                      f"(traced {self.traced})")
+        return False
+
+
 def _watch_bn_inputs(generator_model):
     """Record the shape of every BatchNorm input of the generator from now on;
     returns the set that fills and a function that stops the recording."""
@@ -889,6 +1019,7 @@ def phase_train_step(torch, dev, rec, card):
     from pointcloududa_torch.data.synthetic import synthetic_batch
     from pointcloududa_torch.train.state import create_train_state
     from pointcloududa_torch.train.step import make_train_step
+    from pointcloududa_torch.utils import timer
 
     cfg = mscmrseg_default(
         d1=True, d2=True, d4=True, bs=16, compute_dtype="float32",
@@ -901,18 +1032,23 @@ def phase_train_step(torch, dev, rec, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    _reset_launches()
     times, history = [], []
-    for batch in batches:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, metrics = step(state, batch)
-        end.record()
-        history.append(metrics)
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    counts = _launch_counts()
+    timer.reset_spans()
+    with _CardLaunches(torch) as launched:
+        for batch in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+            history.append(metrics)
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    counts = launched.counts
+    totals = timer.span_totals(profiled=True)  # the steps ran under the trace
+    _require(totals[timer.GEN_CAPTURE][1] == totals[timer.DISC_CAPTURE][1] == 1
+             and totals[timer.GEN_REPLAY][1] == totals[timer.DISC_REPLAY][1] == STEPS - 1,
+             f"step 2 captures both blocks and steps 2-{STEPS} replay them: spans {totals}")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     stop_watching()
     _require(bn_seen == set(BN_SHAPES["mscmrseg"]), f"BatchNorm inputs {sorted(bn_seen)} are not phase (b)'s shapes")
@@ -928,10 +1064,10 @@ def phase_train_step(torch, dev, rec, card):
     _require(not any(counts[k] for k in BF16_ROWS), f"a float32 step launched a bfloat16 kernel: {counts}")
     _require((counts["chamfer_forward"], counts["chamfer_nn_forward"], counts["chamfer_backward"]) == (2 * STEPS, 0, STEPS),
              f"per step the Chamfer loss must launch 2 fused forwards, no one-direction search and 1 backward: {counts}")
-    print(f"  launches in {STEPS} steps: {counts}")
-    # the first step pays cuDNN's algorithm choice and the allocator's growth
-    print(f"  train step (bs 16, 224^2, f32, D1+D2+D4, both kernels): median {statistics.median(times[1:]):.2f} ms "
-          f"after the first step (all: {', '.join(f'{t:.2f}' for t in times)}), "
+    print(f"  launches on the card in {STEPS} steps: {counts}")
+    # the first step pays cuDNN's algorithm choice and the allocator's growth, the second the capture
+    print(f"  train step (bs 16, 224^2, f32, D1+D2+D4, both kernels, traced): median {statistics.median(times[2:]):.2f} ms "
+          f"replayed (steps 3-{STEPS}), the capture's step {times[1]:.2f} ms (all: {', '.join(f'{t:.2f}' for t in times)}), "
           f"peak memory {peak_gib:.2f} GiB, on {card}")
     return cfg, {name: n // STEPS for name, n in counts.items()}
 
@@ -1150,15 +1286,15 @@ def phase_mmwhs(torch, dev, rec, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
-    _reset_launches()
     pre_ms, step_ms, history = [], [], []
-    for raw in raws:
-        batch, t = event_ms(lambda: preprocess(gen, raw))
-        pre_ms.append(t)
-        (state, metrics), t = event_ms(lambda: step(state, batch))
-        step_ms.append(t)
-        history.append(metrics)
-    counts = _launch_counts()
+    with _CardLaunches(torch) as launched:
+        for raw in raws:
+            batch, t = event_ms(lambda: preprocess(gen, raw))
+            pre_ms.append(t)
+            (state, metrics), t = event_ms(lambda: step(state, batch))
+            step_ms.append(t)
+            history.append(metrics)
+    counts = launched.counts
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     stop_watching()
     _require(bn_seen == set(BN_SHAPES["mmwhs"]), f"BatchNorm inputs {sorted(bn_seen)} are not phase (b)'s shapes")
@@ -1174,19 +1310,21 @@ def phase_mmwhs(torch, dev, rec, card):
              f"per step the Chamfer loss must launch 2 fused forwards, no one-direction search and 1 backward: {counts}")
     _require(not any(counts[k] for k in BF16_ROWS), f"a float32 step launched a bfloat16 kernel: {counts}")
     _record_launches(rec, "mmwhs", counts, set(counts) - {"chamfer_nn_forward"} - BF16_ROWS)
-    print(f"  launches in {MMWHS_STEPS} preprocess + step calls: {counts}")
+    print(f"  launches on the card in {MMWHS_STEPS} preprocess + step calls: {counts}")
     # the first call pays cuDNN's algorithm choice and the allocator's growth
     print(f"  MM-WHS device preprocess (bs 16, 256^2, light augmentation of both streams + 32 clouds by the FPS "
-          f"kernel): median {statistics.median(pre_ms[1:]):.2f} ms over calls 1-{MMWHS_STEPS - 1} "
+          f"kernel, traced): median {statistics.median(pre_ms[1:]):.2f} ms over calls 1-{MMWHS_STEPS - 1} "
           f"(all: {', '.join(f'{t:.2f}' for t in pre_ms)}), on {card}")
-    print(f"  MM-WHS train step (bs 16, 256^2, f32, softmax, D2+D4, all kernels): median "
-          f"{statistics.median(step_ms[1:]):.2f} ms over steps 1-{MMWHS_STEPS - 1} "
+    # step 1 eager, step 2 the capture
+    print(f"  MM-WHS train step (bs 16, 256^2, f32, softmax, D2+D4, all kernels, traced): median "
+          f"{statistics.median(step_ms[2:]):.2f} ms replayed (steps 3-{MMWHS_STEPS}) "
           f"(all: {', '.join(f'{t:.2f}' for t in step_ms)}), peak memory {peak_gib:.2f} GiB, on {card}")
 
     # the same preprocess with the point head off: no clouds, so no FPS launch
     no_clouds = make_device_preprocess(dataclasses.replace(cfg, d4=False), train=True, device_augment=True)
+    before = _launch_counts()["fps"]
     bare_ms = [event_ms(lambda: no_clouds(gen, raw))[1] for raw in raws]
-    _require(_launch_counts()["fps"] == counts["fps"], "the point head is off: no cloud may be regenerated")
+    _require(_launch_counts()["fps"] == before, "the point head is off: no cloud may be regenerated")
     print(f"  MM-WHS device preprocess with the point head off (augmentation, normalise, one-hot; no clouds): median "
           f"{statistics.median(bare_ms[1:]):.2f} ms over calls 1-{MMWHS_STEPS - 1} "
           f"(all: {', '.join(f'{t:.2f}' for t in bare_ms)}), on {card}")
@@ -1494,15 +1632,15 @@ def _cli_training_run(torch, dev, rec, card, run_spec, pre_step_ms):
         loop.DevicePrefetcher = TimedPrefetcher
         torch.cuda.reset_peak_memory_stats(dev)
 
-        _reset_launches()
-        with _eval_clock() as clock:
+        with _CardLaunches(torch) as launched, _eval_clock() as clock:
             text = run("a", 2, final_eval=True)
-        counts = _launch_counts()
+        counts = launched.counts
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
         want = run_spec["want"]
         _require(counts == want, f"launches in the training run {counts}, derived from steps, cadence and validation batches {want}")
         _record_launches(rec, run_spec["path"], counts, {k for k, v in want.items() if v})
-        print(f"  launches in 2 epochs of {steps} steps and {val_batches} validation batches each: {counts}, as derived")
+        print(f"  launches on the card in 2 epochs of {steps} steps and {val_batches} validation batches each: "
+              f"{counts}, as derived")
         _require("[1/2]" in text and "[2/2]" in text and "continuing at epoch" not in text, "the first run must train epochs 1 and 2 from scratch")
         scalars = _read_scalars(os.path.join(tmp, "a", "runs"))
         _require(sorted(scalars) == [1, 2], f"epochs logged: {sorted(scalars)}")
@@ -1727,20 +1865,20 @@ def phase_heavy(torch, dev, rec, card, per_step):
     torch.cuda.reset_peak_memory_stats(dev)
 
     # raw 256^2 batch -> heavy augmentation of both streams -> crop 224 -> step, four times
-    _reset_launches()
     pre_ms, step_ms, history = [], [], []
-    for raw in raws:
-        batch, t = event_ms(lambda: preprocess(gen, raw, host_generator=host))
-        pre_ms.append(t)
-        for side in ("s", "t"):
-            img = batch[f"img_{side}"]
-            _require(tuple(img.shape) == (16, 224, 224, 3) and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
-                     f"img_{side}: {tuple(img.shape)} in [{float(img.min())}, {float(img.max())}], not 224^2 in [0, 1]")
-        _require(bool((batch["mask_s"].sum(-1) == 1).all()) and batch["mask_s"].shape[-1] == 4, "labels left {0..3}")
-        (state, metrics), t = event_ms(lambda: step(state, batch))
-        step_ms.append(t)
-        history.append(metrics)
-    counts = _launch_counts()
+    with _CardLaunches(torch) as launched:
+        for raw in raws:
+            batch, t = event_ms(lambda: preprocess(gen, raw, host_generator=host))
+            pre_ms.append(t)
+            for side in ("s", "t"):
+                img = batch[f"img_{side}"]
+                _require(tuple(img.shape) == (16, 224, 224, 3) and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+                         f"img_{side}: {tuple(img.shape)} in [{float(img.min())}, {float(img.max())}], not 224^2 in [0, 1]")
+            _require(bool((batch["mask_s"].sum(-1) == 1).all()) and batch["mask_s"].shape[-1] == 4, "labels left {0..3}")
+            (state, metrics), t = event_ms(lambda: step(state, batch))
+            step_ms.append(t)
+            history.append(metrics)
+    counts = launched.counts
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     for i, metrics in enumerate(history):
         values = {k: float(v) for k, v in metrics.items()}
@@ -1750,11 +1888,13 @@ def phase_heavy(torch, dev, rec, card, per_step):
     want = {name: n * HEAVY_STEPS for name, n in per_step.items()}
     _require(counts == want, f"launches in {HEAVY_STEPS} heavy preprocess + step calls {counts}, phase (c)'s per step x {HEAVY_STEPS}: {want}")
     _record_launches(rec, "mscmrseg_heavy", counts, {k for k, v in want.items() if v})
-    print(f"  launches in {HEAVY_STEPS} heavy preprocess + step calls: {counts} (phase (c)'s per step x {HEAVY_STEPS})")
-    pre_heavy, step_med = statistics.median(pre_ms[1:]), statistics.median(step_ms[1:])
-    print(f"  MS-CMRSeg heavy device preprocess (bs 16, 256^2 -> 224^2, both streams): median {pre_heavy:.2f} ms over calls "
-          f"1-{HEAVY_STEPS - 1} (all: {', '.join(f'{t:.2f}' for t in pre_ms)}); train step (D1+D2+D4, all kernels): median "
-          f"{step_med:.2f} ms (all: {', '.join(f'{t:.2f}' for t in step_ms)}); peak memory {peak_gib:.2f} GiB, on {card}")
+    print(f"  launches on the card in {HEAVY_STEPS} heavy preprocess + step calls: {counts} (phase (c)'s per step "
+          f"x {HEAVY_STEPS})")
+    pre_heavy, step_med = statistics.median(pre_ms[1:]), statistics.median(step_ms[2:])  # step 2 is the capture
+    print(f"  MS-CMRSeg heavy device preprocess (bs 16, 256^2 -> 224^2, both streams, traced): median {pre_heavy:.2f} ms over "
+          f"calls 1-{HEAVY_STEPS - 1} (all: {', '.join(f'{t:.2f}' for t in pre_ms)}); train step (D1+D2+D4, all kernels): "
+          f"median {step_med:.2f} ms replayed (all: {', '.join(f'{t:.2f}' for t in step_ms)}); peak memory {peak_gib:.2f} GiB, "
+          f"on {card}")
 
     # no host-device synchronisation in a heavy preprocess: PyTorch's sync
     # check raises on one, and the CUDA runtime calls of one call in a
@@ -1803,20 +1943,21 @@ def phase_heavy(torch, dev, rec, card, per_step):
     mraws = [_to_device(torch, synthetic_raw_batch(mcfg, mcfg.bs, seed=30 + s), dev) for s in range(2)]
     heavy = augment.heavy()
     shape = (256, 256, 3)
-    _reset_launches()
     mms = []
-    for raw in mraws:
-        draws = {f"aug_{side}": augment.sample_draws(gen, heavy, mcfg.bs, dev, shape, host) for side in ("s", "t")}
-        batch, t = event_ms(lambda: mpre(gen, raw, draws=draws))
-        (mstate, metrics), t2 = event_ms(lambda: mstep(mstate, batch))
-        mms.append((t, t2))
-        values = {k: float(v) for k, v in metrics.items()}
-        _require(all(np.isfinite(v) for v in values.values()), f"MM-WHS heavy step: {values}")
-        blank = torch.zeros((mcfg.bs, 256, 256, 3), device=dev)
-        for side in ("s", "t"):
-            _, warped = augment.augment_from_draws(heavy, blank, raw[f"mask_{side}"], draws[f"aug_{side}"])
-            _require(_on_candidates(torch, batch[f"vert_{side}"] * 255.0, warped), f"vert_{side}: a point off the warped mask's candidates")
-    mcounts = _launch_counts()
+    with _CardLaunches(torch) as launched:
+        for raw in mraws:
+            draws = {f"aug_{side}": augment.sample_draws(gen, heavy, mcfg.bs, dev, shape, host) for side in ("s", "t")}
+            batch, t = event_ms(lambda: mpre(gen, raw, draws=draws))
+            (mstate, metrics), t2 = event_ms(lambda: mstep(mstate, batch))
+            mms.append((t, t2))
+            values = {k: float(v) for k, v in metrics.items()}
+            _require(all(np.isfinite(v) for v in values.values()), f"MM-WHS heavy step: {values}")
+            blank = torch.zeros((mcfg.bs, 256, 256, 3), device=dev)
+            for side in ("s", "t"):
+                _, warped = augment.augment_from_draws(heavy, blank, raw[f"mask_{side}"], draws[f"aug_{side}"])
+                _require(_on_candidates(torch, batch[f"vert_{side}"] * 255.0, warped),
+                         f"vert_{side}: a point off the warped mask's candidates")
+    mcounts = launched.counts
     _require(mcounts["fps"] == 2 * len(mraws), f"fps launched {mcounts['fps']} times in {len(mraws)} steps, not twice per step")
     _record_launches(rec, "mmwhs_heavy", mcounts, {"fps", "chamfer_forward", "chamfer_backward", "bn_stats_forward", "bn_stats_backward"})
     torch.cuda.synchronize()
@@ -1828,7 +1969,7 @@ def phase_heavy(torch, dev, rec, card, per_step):
     mtrace = _trace_calls(torch, lambda: mpre(gen, mraws[1], host_generator=host))
     print(f"  MM-WHS -aug heavy (softmax D2+D4, 256^2): 2 preprocess + step calls, metrics finite, fps launched "
           f"{mcounts['fps']} times, clouds on the warped masks' candidates; preprocess {mms[1][0]:.2f} ms, step {mms[1][1]:.2f} ms "
-          f"(second call); its preprocess: no synchronisation under the sync check, {_trace_text(mtrace)}; launches {mcounts}, "
+          f"(second call, the capture's, traced); its preprocess: no synchronisation under the sync check, {_trace_text(mtrace)}; launches {mcounts}, "
           f"on {card}")
     del mstate, mstep
 
@@ -2212,17 +2353,17 @@ def phase_bf16(torch, dev, rec, card, heavy_pre_ms, keep, tmp, f32_labels):
                      for m in state.models[0].modules() if isinstance(m, TwinBatchNorm)]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(dev)
-            _reset_launches()
             pre_ms, step_ms, history = [], [], []
-            for item in data[workload]:
-                batch = item
-                if preprocess is not None:
-                    batch, t = event_ms(lambda: preprocess(gen, item))
-                    pre_ms.append(t)
-                (state, metrics), t = event_ms(lambda: step(state, batch))
-                step_ms.append(t)
-                history.append(metrics)
-            counts = _launch_counts()
+            with _CardLaunches(torch) as launched:
+                for item in data[workload]:
+                    batch = item
+                    if preprocess is not None:
+                        batch, t = event_ms(lambda: preprocess(gen, item))
+                        pre_ms.append(t)
+                    (state, metrics), t = event_ms(lambda: step(state, batch))
+                    step_ms.append(t)
+                    history.append(metrics)
+            counts = launched.counts
             peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
             for h in hooks:
                 h.remove()
@@ -2243,17 +2384,19 @@ def phase_bf16(torch, dev, rec, card, heavy_pre_ms, keep, tmp, f32_labels):
                          and counts["fps"] == (2 * n if workload == "mmwhs" else 0),
                          f"launches of {n} bf16 {workload} steps: {counts}")
                 _record_launches(rec, f"{workload}_bf16", counts, {k for k, v in counts.items() if v})
-                print(f"  launches in {n} bf16 {workload} {'preprocess + ' if preprocess else ''}step calls: {counts}")
+                print(f"  launches on the card in {n} bf16 {workload} {'preprocess + ' if preprocess else ''}step calls: "
+                      f"{counts}")
                 per_step[workload] = {k: v // n for k, v in counts.items()}
-            timing[(workload, dtype)] = dict(step=statistics.median(step_ms[1:]), all=step_ms, peak=peak_gib,
+            # step 1 eager, step 2 the capture
+            timing[(workload, dtype)] = dict(step=statistics.median(step_ms[2:]), all=step_ms, peak=peak_gib,
                                             pre=statistics.median(pre_ms[1:]) if pre_ms else 0.0)
             print(f"  {workload} {dtype} step, profiled once more: {_profile_text(prof)}")
             del state, step, preprocess, history, batch
             torch.cuda.empty_cache()
         f, b = timing[(workload, "float32")], timing[(workload, "bfloat16")]
         pre = f" (device preprocess {f['pre']:.2f} and {b['pre']:.2f} ms)" if workload == "mmwhs" else ""
-        print(f"  {workload} train step, bs 16, {base[workload].crop_size}^2, all kernels: bfloat16 median {b['step']:.2f} ms "
-              f"against float32 {f['step']:.2f} ms over steps 1-{BF16_STEPS - 1} in this call (all: bf16 "
+        print(f"  {workload} train step, bs 16, {base[workload].crop_size}^2, all kernels, traced: bfloat16 median "
+              f"{b['step']:.2f} ms against float32 {f['step']:.2f} ms replayed, steps 3-{BF16_STEPS}, in this call (all: bf16 "
               f"{', '.join(f'{t:.2f}' for t in b['all'])}; f32 {', '.join(f'{t:.2f}' for t in f['all'])}){pre}; peak memory "
               f"{b['peak']:.2f} GiB against {f['peak']:.2f} GiB, on {card}")
 
@@ -2445,10 +2588,12 @@ def _dp_run(mesh, workload: str, dtype: str, swap: bool = False) -> dict:
                 batch = {k: v[order] for k, v in batch.items()}
             return batch, step(state, batch)[1]
 
-        (batch, metrics), ms = event_ms(one_step)
+        # one process replays its second step; the ranks, under a mesh, run every step eagerly
+        with _CardLaunches(torch) if mesh is None else contextlib.nullcontext() as launched:
+            (batch, metrics), ms = event_ms(one_step)
         if pre is not None:
             out["clouds"].append({k: batch[k].cpu().numpy() for k in ("vert_s", "vert_t")})
-        out["launches"].append(_launch_counts())
+        out["launches"].append(launched.counts if launched is not None else _launch_counts())
         out["all_reduces"].append(collectives.all_reduce.launches)
         out["ms"].append(ms)
         out["metrics"].append({k: float(v) for k, v in metrics.items()})
@@ -2607,11 +2752,11 @@ def _dp_cli(torch, dev, rec, card):
         counts = {}
         for tag, extra in (("dist", ["-dist"]), ("one", [])):
             os.environ.update(env)
-            _reset_launches()
             collectives.reset_launches()
             t0 = time.perf_counter()
-            _quiet(train_mscmrseg.main, argv + extra + ["-workdir", os.path.join(tmp, tag, "w"), "-logdir", os.path.join(tmp, tag, "r")])
-            counts[tag] = (_launch_counts(), collectives.all_reduce.launches, time.perf_counter() - t0)
+            with _CardLaunches(torch) as launched:  # the run without -dist replays its second step
+                _quiet(train_mscmrseg.main, argv + extra + ["-workdir", os.path.join(tmp, tag, "w"), "-logdir", os.path.join(tmp, tag, "r")])
+            counts[tag] = (launched.counts, collectives.all_reduce.launches, time.perf_counter() - t0)
             _require(not torch.distributed.is_initialized(), "the CLI left its process group")
         _require(counts["dist"][0] == counts["one"][0], f"launches with -dist {counts['dist'][0]} vs without {counts['one'][0]}")
         _require(counts["dist"][1] > 0 and counts["one"][1] == 0, f"all-reduces: -dist {counts['dist'][1]}, without {counts['one'][1]}")
@@ -2864,18 +3009,20 @@ def _fabricate_raw_mmwhs(root: str, seed: int) -> int:
 def _drive_runbook(runbook, run, stage_s, counts_of):
     """``run()``, which drives ``runbook``'s stages through its ``run_stage``
     on the card, with each stage timed into ``stage_s`` and the kernels'
-    launches of each CLI stage, from 0, into ``counts_of``; returns what the
-    stages printed."""
+    launches of each CLI stage on the card into ``counts_of``;
+    returns what the stages printed."""
     real = runbook.run_stage
 
     def timed(module, stage_argv, workdir, device=None):
+        import torch
+
         name = module.rsplit(".", 1)[1]
-        _reset_launches()
         t0 = time.perf_counter()
-        real(module, stage_argv, workdir, device=device)
+        with _CardLaunches(torch) if module.startswith(runbook.CLI) else contextlib.nullcontext() as launched:
+            real(module, stage_argv, workdir, device=device)
         stage_s.append((name, time.perf_counter() - t0))
-        if module.startswith(runbook.CLI):
-            counts_of[name] = _launch_counts()
+        if launched is not None:
+            counts_of[name] = launched.counts
 
     runbook.run_stage = timed
     try:
@@ -3066,11 +3213,12 @@ def phase_smokes(torch, dev, rec, card):
     from pointcloududa_torch.config import mscmrseg_default
     from pointcloududa_torch.smoke import smoke_train, smoke_uda
 
-    _reset_launches()
     t0 = time.perf_counter()
-    dices = smoke_train.main([])
+    with _CardLaunches(torch) as launched:
+        launched.every()
+        dices = smoke_train.main([])
     train_s = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = launched.counts
     cfg = with_kernels(mscmrseg_default(bs=16, compute_dtype="bfloat16"))
     want = _step_launches(cfg, SMOKE_TRAIN_STEPS)
     _require(counts == want, f"smoke_train launched {counts}, derived {want}")
@@ -3079,13 +3227,14 @@ def phase_smokes(torch, dev, rec, card):
     print(f"  smoke_train (bs 16, 224^2, nf 32, bf16, {SMOKE_TRAIN_STEPS} steps): Dice by step "
           + ", ".join(f"{i} {d:.4f}" for i, d in dices)
           + f"; {train_s:.1f} s, {SMOKE_TRAIN_STEPS * 16 / train_s:.0f} slices/s with the host's batches and the state's "
-          f"creation; launches {counts}, as derived; on {card}")
+          f"creation, traced in {launched.traces} traces; launches on the card {counts}, as derived; on {card}")
 
-    _reset_launches()
     t0 = time.perf_counter()
-    probes = smoke_uda.main(["--d4"])
+    with _CardLaunches(torch) as launched:
+        launched.every()  # more steps than one trace holds
+        probes = smoke_uda.main(["--d4"])
     uda_s = time.perf_counter() - t0
-    counts = _launch_counts()
+    counts = launched.counts
     cfg = with_kernels(mscmrseg_default(bs=16, d1=True, d2=True, d4=True, compute_dtype="bfloat16"))
     n_probes = len(range(0, SMOKE_UDA_STEPS, SMOKE_UDA_EVERY)) + ((SMOKE_UDA_STEPS - 1) % SMOKE_UDA_EVERY > 0)
     want = _step_launches(cfg, SMOKE_UDA_STEPS, evals_with_cloud=n_probes)
@@ -3098,7 +3247,7 @@ def phase_smokes(torch, dev, rec, card):
               f"{p['seg_loss']:.4f} adv {p['adv_loss']:.4f} d1 {p['dis1_acc1']:.2f}/{p['dis1_acc2']:.2f} "
               f"d2 {p['dis2_acc1']:.2f}/{p['dis2_acc2']:.2f} d4 {p['dis4_acc1']:.2f}/{p['dis4_acc2']:.2f}")
     print(f"  smoke_uda --d4 (bs 16, 224^2, bf16, D1+D2+D4, pool 12, {SMOKE_UDA_STEPS} steps): {uda_s:.1f} s with the "
-          f"pool's 384 host clouds; launches {counts}, as derived; on {card}")
+          f"pool's 384 host clouds, traced in {launched.traces} traces; launches on the card {counts}, as derived; on {card}")
 
 
 def main() -> int:

@@ -17,6 +17,15 @@ per-step H2D copies, ``train_mscmrseg.py:183-330``):
   a device result inside the epoch: metrics stay on the device and are
   fetched once per epoch.
 
+On the card the preprocess runs on a high-priority stream of the trainer's
+own, so that its many small kernels run beside the step's CUDA graphs, and
+the host launches batch i's preprocess while the card runs step i-1. Before
+it does, the host waits for step i-2 to finish: the card always holds a
+whole step to hide the host's launches behind, and no more batches wait in
+device memory than that. The draws are made in the same
+order on the same generators, so the batches are bit for bit those the main
+stream would make.
+
 Epoch cadence parity: validation over (source-val, target-val, target-train)
 every epoch (``train_mscmrseg.py:102-139``), checkpoint monitor =
 ``val_lge_dice`` mode=max, generator lr x0.2 every ``decay_e`` epochs, and a
@@ -269,6 +278,8 @@ class UDATrainer:
         self.pre_eval = make_device_preprocess(cfg, train=False, device_augment=False, device=self.device, mesh=mesh)
         self.place = place if place is not None else (lambda b: to_device(b, self.device))
         self._iteration_span = trace_annotation(timer.ITERATION, iteration=True)
+        # the preprocess's stream on the card (None on the CPU), scheduled ahead of the step's kernels
+        self._pre_stream = torch.cuda.Stream(self.device, priority=-1) if self.device.type == "cuda" else None
         self._aug_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 17)
         # the heavy and medium pipelines' orders and SomeOf members, drawn on
         # the host so that it never waits for the device to learn them
@@ -312,19 +323,38 @@ class UDATrainer:
         padder = BatchPadder(self._pad_multiple)
         every = self.cfg.vert_t_every
         batches = prefetch(map(padder, self.train_iter.epoch()))
+        side = self._pre_stream
+        main = torch.cuda.current_stream(self.device) if side is not None else None
+        # events after the last two steps: the host waits for the older before it prepares the next batch, so the
+        # card holds one step to hide the host's launches behind (more would hold more batches in device memory
+        # and put the host's spans further from the card's work)
+        older = newer = None
         timer.reset_spans()  # timer.per_iteration_ms reads this epoch's spans
         while True:
             with self._iteration_span as turn:
-                raw = next(batches, None)  # the wait is the prefetcher's uda.queue_wait
-                if raw is None:
-                    turn.discard()  # the stream's end: no iteration
-                    break
-                # cadence of the logged-only target chamfer (vert_t_every):
-                # off-cadence steps drop vert_t, and with it the target
-                # cloud's regeneration and the diagnostic's launch
-                with_vt = every <= 1 or step % every == 0
-                batch = self.pre_train(self._aug_gen, raw, with_vert_t=with_vt, host_generator=self._aug_host_gen)
+                if older is not None:
+                    older.synchronize()
+                # on the side stream (a no-op on the CPU): the prefetcher's copy is waited for there, the
+                # preprocess's kernels are enqueued there
+                with torch.cuda.stream(side):
+                    raw = next(batches, None)  # the wait is the prefetcher's uda.queue_wait
+                    if raw is None:
+                        turn.discard()  # the stream's end: no iteration
+                        break
+                    # cadence of the logged-only target chamfer (vert_t_every):
+                    # off-cadence steps drop vert_t, and with it the target
+                    # cloud's regeneration and the diagnostic's launch
+                    with_vt = every <= 1 or step % every == 0
+                    batch = self.pre_train(self._aug_gen, raw, with_vert_t=with_vt, host_generator=self._aug_host_gen)
+                if side is not None:
+                    # the step waits for the batch; its memory, the side stream's, is not reused before the step
+                    # has read it (DevicePrefetcher's rules)
+                    main.wait_stream(side)
+                    for v in batch.values():
+                        v.record_stream(main)
                 self.state, metrics = self.train_step(self.state, batch)
+                if side is not None:
+                    older, newer = newer, main.record_event()
                 metrics_acc.append(metrics)  # 0-d tensors on the device: nothing is read here
             step += 1
         # key union: ver_t_loss is present only on cadence steps; its epoch

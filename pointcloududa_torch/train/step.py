@@ -12,9 +12,10 @@
 
 BatchNorm running statistics are updated in the reference's order: the
 generator sees source then target; D4 sees target (phase 2), source, then
-target (phases 3-4). On the card, phases 3-5 are replayed from one CUDA graph
-once their inputs' shapes have been seen (``train/disc_graph.py`` says when,
-and why the arithmetic is the eager block's). Batches are NHWC (``img_s``,
+target (phases 3-4). On the card, phases 1-2 and phases 3-5 are each replayed
+from a CUDA graph once their inputs' shapes have been seen, and the
+generator's update runs eagerly between them (``train/step_graph.py`` says
+when, and why the arithmetic is the eager block's). Batches are NHWC (``img_s``,
 one-hot ``mask_s``, ``img_t``) with (B, 300, 3) clouds (``vert_s``, ``vert_t``) and an optional
 (B,) ``sample_mask``; numpy arrays or tensors. Metrics are 0-d tensors on the
 models' device, under the JAX step's keys.
@@ -36,7 +37,7 @@ import torch
 from pointcloududa_torch.config import UDAConfig
 from pointcloududa_torch.ops import chamfer_kernel, losses
 from pointcloududa_torch.parallel import collectives
-from pointcloududa_torch.train.disc_graph import DiscriminatorGraphs
+from pointcloududa_torch.train.step_graph import StepGraphs
 from pointcloududa_torch.train.state import UDATrainState
 from pointcloududa_torch.utils import timer
 from pointcloududa_torch.utils.timer import trace_annotation
@@ -118,8 +119,8 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
     = (gen, d1, d2, d4) (None where disabled) in place with ``optimizers``;
     ``state`` supplies the step count and the dropout generator. ``mesh``: the
     data mesh whose global batch the step trains on (``None``: this
-    process's batch). ``step.disc_graphs`` is the step's
-    :class:`DiscriminatorGraphs`."""
+    process's batch). ``step.gen_graphs`` and ``step.disc_graphs`` are the
+    step's :class:`StepGraphs` of phases 1-2 and 3-5."""
     gen, d1, d2, d4 = models
     gen_opt, d1_opt, d2_opt, d4_opt = optimizers
     chamfer = _chamfer(cfg)
@@ -139,15 +140,17 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
             # stats order: target (phase 2) -> source -> target
             d4_logits = lambda p: d4(p, rng)[0]  # noqa: E731
             metrics.update(discriminator_phase(d4_logits, d4_opt, x["d4_src"], x["d4_tgt"], sm, 4))
-        return metrics
+        return metrics, {}
 
-    disc_graphs = DiscriminatorGraphs(disc_block, (d1_opt, d2_opt, d4_opt), device)
+    disc_params = [p for d in discs for p in d.parameters()]
+    disc_graphs = StepGraphs(disc_block, device, discs, disc_params, (d1_opt, d2_opt, d4_opt), spans=timer.DISC_GRAPH,
+                             max_graphs=2)
 
     def generator_phases(b, rng):
-        """Phases 1+2 and the generator's update on the batch ``b``: the
+        """Phases 1+2 on the batch ``b`` up to the generator's gradients: the
         metrics, detached, and the detached outputs phases 3-5 take. The
         autograd graph dies with this frame, its accumulators of the
-        discriminators' gradients among its nodes: a capture of phases 3-5
+        discriminators' gradients among its nodes: a capture of either block
         makes its own on the capture's stream (an older one would
         synchronise with the stream it was made on)."""
         img_s, mask_s, img_t = b["img_s"], b["mask_s"].to(torch.float32), b["img_t"]
@@ -193,7 +196,6 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
             gen_opt.zero_grad(set_to_none=True)
         with _SPAN["uda.step.gen_backward"]:
             gen_total.backward(inputs=gen_params)  # the discriminators take no gradient
-        with _SPAN["uda.step.gen_update"]:
             if cfg.sgd:
                 # a parameter no output depends on (the encoder's unused conv1_1)
                 # has no gradient, and torch's SGD would skip it; the reference
@@ -202,8 +204,6 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
                 for p in gen_params:
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
-            collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
-            gen_opt.step()
 
         metrics.update(
             seg_loss=l1 + l2, adv_loss=adv, gen_total_loss=gen_total,
@@ -226,16 +226,25 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
             x["sample_mask"] = sm
         return {k: v.detach() for k, v in metrics.items()}, x
 
+    # full batch and padded tail, each with and without the cadence's vert_t
+    gen_graphs = StepGraphs(generator_phases, device, models, gen_params, spans=timer.GEN_GRAPH, max_graphs=4)
+
     def step(state: UDATrainState, batch):
         with _SPAN["uda.step"]:
             for m in (gen, *discs):
                 m.train()
-            metrics, x = generator_phases(_tensors(batch, device), state.generator)
+            # ---- phases 1+2, eagerly or from one CUDA graph, then the generator's update
+            metrics, x = gen_graphs(_tensors(batch, device), state.generator)
+            with _SPAN["uda.step.gen_update"]:
+                collectives.average_grads(gen_params)  # after the zero gradients: every rank decays conv1_1 alike
+                gen_opt.step()
             # ---- phases 3-5: discriminators on detached outputs, eagerly or from one CUDA graph
-            metrics.update(disc_graphs(x, state.generator))
+            if discs:
+                metrics.update(disc_graphs(x, state.generator)[0])
             state.step += 1
             return state, {k: v.detach() for k, v in metrics.items()}
 
+    step.gen_graphs = gen_graphs
     step.disc_graphs = disc_graphs
     return collectives.within(mesh, step)
 

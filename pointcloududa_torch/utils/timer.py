@@ -79,8 +79,11 @@ STEP = "uda.step"  # make_train_step's step
 DISC_REPLAY = "uda.step.disc_replay"  # phases 3-5 from their CUDA graph: copies in, replay, copy out; calls = replays
 DISC_CAPTURE = "uda.step.disc_capture"  # a capture of that graph; calls = captures
 DISC_GRAPH = (DISC_REPLAY, DISC_CAPTURE)  # neither fires where phases 3-5 run eagerly (the CPU, a mesh)
+GEN_REPLAY = "uda.step.gen_replay"  # phases 1-2 from their CUDA graph: copies in, replay, copy out; calls = replays
+GEN_CAPTURE = "uda.step.gen_capture"  # a capture of that graph; calls = captures
+GEN_GRAPH = (GEN_REPLAY, GEN_CAPTURE)  # neither fires where phases 1-2 run eagerly (the CPU, a mesh)
 STEP_PARTS = ("uda.step.gen_forward", "uda.step.gen_backward", "uda.step.gen_update", "uda.step.metrics") + tuple(
-    f"uda.step.d{k}.{part}" for k in (1, 2, 4) for part in ("forward", "backward", "update")) + DISC_GRAPH
+    f"uda.step.d{k}.{part}" for k in (1, 2, 4) for part in ("forward", "backward", "update")) + DISC_GRAPH + GEN_GRAPH
 SPAN_NAMES = (ITERATION, QUEUE_WAIT, PREPROCESS) + PREPROCESS_PARTS + (STEP,) + STEP_PARTS
 
 # {profiler recording when the iteration began: {span name: [host ns, calls]}}; held by the module, as the

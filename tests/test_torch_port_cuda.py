@@ -604,8 +604,9 @@ def _paper_cfg(name, **kw):
 
 
 def _graph_run(cfg, batches, graphed):
-    """Steps from one seed on the card, phases 3-5 replayed from their graph
-    (``graphed``) or run eagerly; the state, each step's metrics and the
+    """Steps from one seed on the card, the blocks named in ``graphed``
+    (``"gen"``: phases 1-2, ``"disc"``: phases 3-5) replayed from their
+    graphs and the others run eagerly; the state, each step's metrics and the
     span totals."""
     from pointcloududa_torch.train.state import create_train_state
     from pointcloududa_torch.train.step import make_train_step
@@ -613,7 +614,8 @@ def _graph_run(cfg, batches, graphed):
 
     st = create_train_state(cfg, seed=5)
     step = make_train_step(cfg, st.models, st.optimizers)
-    step.disc_graphs.on_card = graphed
+    step.gen_graphs.on_card = "gen" in graphed
+    step.disc_graphs.on_card = "disc" in graphed
     timer.reset_spans()
     metrics = []
     for b in batches:
@@ -666,8 +668,8 @@ def test_graphed_discriminator_phases_equal_eager_ones(deterministic, name, dtyp
 
     cfg = _paper_cfg(name, bs=4, compute_dtype=dtype)
     batches = [synthetic_batch(cfg, 4, seed=s) for s in range(6)]
-    eager = _graph_run(cfg, batches, graphed=False)
-    graphed = _graph_run(cfg, batches, graphed=True)
+    eager = _graph_run(cfg, batches, graphed=())
+    graphed = _graph_run(cfg, batches, graphed=("disc",))
     assert graphed[2][timer.DISC_CAPTURE][1] == 1 and graphed[2][timer.DISC_REPLAY][1] == 5
     assert timer.DISC_REPLAY not in eager[2]
     assert _largest_differences(eager[:2], graphed[:2]) == {}
@@ -683,9 +685,10 @@ def test_a_padded_tail_runs_eagerly_between_replays(deterministic):
     cfg = _paper_cfg("mscmrseg", bs=4)
     batches = [synthetic_batch(cfg, 4, seed=s) for s in range(4)]
     batches[2]["sample_mask"] = np.array([1, 1, 0, 0], np.float32)
-    eager = _graph_run(cfg, batches, graphed=False)
-    graphed = _graph_run(cfg, batches, graphed=True)
+    eager = _graph_run(cfg, batches, graphed=())
+    graphed = _graph_run(cfg, batches, graphed=("gen", "disc"))
     assert graphed[2][timer.DISC_CAPTURE][1] == 1 and graphed[2][timer.DISC_REPLAY][1] == 2
+    assert graphed[2][timer.GEN_CAPTURE][1] == 1 and graphed[2][timer.GEN_REPLAY][1] == 2
     assert graphed[2]["uda.step.d4.forward"][1] == 3  # the first step, the capture's pass and the tail; no replay
     assert _largest_differences(eager[:2], graphed[:2]) == {}
 
@@ -729,3 +732,174 @@ def test_a_restore_mid_run_recaptures_and_matches_the_uninterrupted_run(determin
     for t in (straight, resumed):
         t.writer.close()
     assert _largest_differences((straight.state, []), (resumed.state, [])) == {}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", sorted(PAPER))
+def test_graphed_generator_phases_equal_eager_ones(deterministic, name, dtype):
+    """Six steps of a paper configuration at bs 4 (in the CLIs' bfloat16 and
+    in float32) with phases 1-2 from one CUDA graph (the first eager, the
+    second captures, then replays; the generator's Adam update eager after
+    each replay) against six eager steps from the same weights, batches and
+    generator seed: parameters, Adam's moments, the U-Net's and D4's running
+    statistics, each step's metrics and the dropout generator's state
+    bit-equal; then with phases 3-5 graphed too, as the step runs on the
+    card."""
+    from pointcloududa_torch.data.synthetic import synthetic_batch
+    from pointcloududa_torch.utils import timer
+
+    cfg = _paper_cfg(name, bs=4, compute_dtype=dtype)
+    batches = [synthetic_batch(cfg, 4, seed=s) for s in range(6)]
+    eager = _graph_run(cfg, batches, graphed=())
+    for graphed in (("gen",), ("gen", "disc")):
+        got = _graph_run(cfg, batches, graphed=graphed)
+        assert got[2][timer.GEN_CAPTURE][1] == 1 and got[2][timer.GEN_REPLAY][1] == 5
+        assert _largest_differences(eager[:2], got[:2]) == {}, graphed
+    assert timer.GEN_REPLAY not in eager[2]
+    assert got[2]["uda.step.gen_backward"][1] == 2  # the first step and the capture's pass; no replay
+
+
+def test_the_cadence_keeps_two_generator_graphs_and_a_tail_runs_eagerly(deterministic):
+    """``vert_t`` every other step and a padded tail among them: phases 1-2
+    capture each cadence key once (steps 2 and 3) and replay it after; the
+    tail (its key seen once) runs eagerly between replays; bit-equal to the
+    eager run, both blocks graphed."""
+    from pointcloududa_torch.data.synthetic import synthetic_batch
+    from pointcloududa_torch.utils import timer
+
+    cfg = _paper_cfg("mscmrseg", bs=4)
+    batches = [synthetic_batch(cfg, 4, seed=s) for s in range(7)]
+    for s in (1, 3, 5):
+        del batches[s]["vert_t"]
+    batches[4]["sample_mask"] = np.array([1, 1, 0, 0], np.float32)
+    eager = _graph_run(cfg, batches, graphed=())
+    graphed = _graph_run(cfg, batches, graphed=("gen", "disc"))
+    assert graphed[2][timer.GEN_CAPTURE][1] == 2 and graphed[2][timer.GEN_REPLAY][1] == 4  # steps 2, 3, 5, 6
+    assert graphed[2][timer.DISC_CAPTURE][1] == 1 and graphed[2][timer.DISC_REPLAY][1] == 5
+    assert _largest_differences(eager[:2], graphed[:2]) == {}
+
+
+def _raw_batches(cfg, n):
+    """``n`` raw host batches at the configuration's size: MS-CMRSeg's uint8
+    slices and stored clouds, MM-WHS's float slices with anatomy-like masks
+    (the clouds are regenerated from them)."""
+    from pointcloududa_torch.data.synthetic import synthetic_blob_masks, synthetic_raw_batch
+
+    out = []
+    for s in range(n):
+        raw = synthetic_raw_batch(cfg, cfg.bs, seed=s)
+        if cfg.workload == "mmwhs":
+            raw["mask_s"] = synthetic_blob_masks(cfg.bs, cfg.crop_size, seed=s)
+            raw["mask_t"] = synthetic_blob_masks(cfg.bs, cfg.crop_size, seed=9 + s)
+        out.append(raw)
+    return out
+
+
+@pytest.mark.parametrize("name,aug", [("mscmrseg", "heavy"), ("mscmrseg", "aug2"), ("mmwhs", "light")])
+def test_the_side_stream_preprocess_hands_the_step_the_main_streams_batches(deterministic, tmp_path, name, aug):
+    """Three steps of ``UDATrainer.train_epoch`` (every kernel on; phases 1-2
+    and 3-5 eager, captured, replayed) with the preprocess on the trainer's
+    side stream, against the same epoch with the preprocess forced onto the
+    main stream: the batches ``pre_train`` hands the step bit for bit, the
+    epoch's metrics and the state after it bit-equal; the preprocess ran on
+    the side stream, the step on the main one."""
+    from pointcloududa_torch.cli.common import with_kernels
+    from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
+    from pointcloududa_torch.train.loop import UDATrainer
+
+    make = mscmrseg_default if name == "mscmrseg" else mmwhs_default
+    cfg = with_kernels(make(**{**PAPER[name], "aug": aug, "filters": 8, "crop_size": 96, "fc_inch": 1, "bs": 4,
+                               "compute_dtype": "float32"}))
+    raws = _raw_batches(cfg, 3)
+
+    class Batches:
+        steps_per_epoch = 3
+
+        def epoch(self):
+            return iter(raws)
+
+    def run(d, force_main):
+        trainer = UDATrainer(cfg, Batches(), {}, workdir=str(tmp_path / d / "w"), logdir=str(tmp_path / d / "r"))
+        main = torch.cuda.current_stream(dev).cuda_stream
+        if force_main:
+            trainer._pre_stream = torch.cuda.current_stream(dev)
+        handed, streams = [], []
+        pre, step = trainer.pre_train, trainer.train_step
+
+        def recorded_pre(*args, **kwargs):
+            batch = pre(*args, **kwargs)
+            streams.append(torch.cuda.current_stream(dev).cuda_stream)
+            handed.append({k: v.clone() for k, v in batch.items()})  # on the preprocess's stream, after its work
+            return batch
+
+        def recorded_step(state, batch):
+            assert torch.cuda.current_stream(dev).cuda_stream == main
+            return step(state, batch)
+
+        trainer.pre_train, trainer.train_step = recorded_pre, recorded_step
+        metrics = trainer.train_epoch()
+        torch.cuda.synchronize()
+        trainer.writer.close()
+        return trainer, handed, streams, metrics, main
+
+    dev = deterministic
+    side, on_main = run("side", False), run("main", True)
+    assert all(s == side[0]._pre_stream.cuda_stream != side[4] for s in side[2]) and len(side[2]) == 3
+    assert all(s == on_main[4] for s in on_main[2])
+    for a, b in zip(side[1], on_main[1]):
+        assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+    assert side[3] == on_main[3] and all(np.isfinite(v) for v in side[3].values())
+    assert _largest_differences((side[0].state, []), (on_main[0].state, [])) == {}
+
+
+def test_garbage_that_holds_a_graph_is_freed_before_a_capture(deterministic):
+    """A dropped step whose graphs sit in a reference cycle (as a dropped
+    trainer's do: its ``place`` lambda refers to it) is freed before a capture
+    begins, not during it, where freeing a graph invalidates the capture (and
+    leaves the dropout generator unusable): with such garbage made just before
+    each capture and the collector run inside it, the step still captures both
+    blocks, replays them, and equals the eager run."""
+    import gc
+
+    from pointcloududa_torch.data.synthetic import synthetic_batch
+    from pointcloududa_torch.train import step_graph
+    from pointcloududa_torch.train.state import create_train_state
+    from pointcloududa_torch.train.step import make_train_step
+    from pointcloududa_torch.utils import timer
+
+    cfg = _paper_cfg("mscmrseg", bs=2, compute_dtype="float32")
+    batches = [synthetic_batch(cfg, 2, seed=s) for s in range(4)]
+
+    def garbage():
+        st = create_train_state(cfg, seed=1)
+        step = make_train_step(cfg, st.models, st.optimizers)
+        for b in batches[:2]:  # the second step captures both blocks
+            st, _ = step(st, b)
+        cycle = [step, st]
+        cycle.append(cycle)
+
+    class Collecting(step_graph.CudaGraph):
+        def __init__(self, body, generator, pool=None):
+            garbage()
+
+            def collecting():
+                gc.collect()  # inside the capture: frees whatever cyclic garbage the capture began with
+                return body()
+
+            super().__init__(collecting, generator, pool)
+
+    eager = _graph_run(cfg, batches, graphed=())
+    st = create_train_state(cfg, seed=5)
+    step = make_train_step(cfg, st.models, st.optimizers)
+    step.gen_graphs.make_graph = step.disc_graphs.make_graph = Collecting
+    timer.reset_spans()
+    metrics = []
+    for b in batches:
+        st, m = step(st, b)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    totals = timer.span_totals()
+    # each block: this step's capture and 3 replays, and each of the two garbage steps' capture and replay
+    assert totals[timer.GEN_CAPTURE][1] == 3 and totals[timer.GEN_REPLAY][1] == 5
+    assert totals[timer.DISC_CAPTURE][1] == 3 and totals[timer.DISC_REPLAY][1] == 5
+    assert _largest_differences(eager[:2], (st, metrics)) == {}

@@ -26,8 +26,8 @@ CFG = dict(filters=4, crop_size=32, n_block=2, fc_inch=9, bs=2, ns=2 * STEPS, ep
 PARENT = {timer.QUEUE_WAIT: timer.ITERATION, timer.PREPROCESS: timer.ITERATION, timer.STEP: timer.ITERATION,
           **{name: timer.PREPROCESS for name in timer.PREPROCESS_PARTS},
           **{name: timer.STEP for name in timer.STEP_PARTS}}
-# on the CPU phases 3-5 run eagerly: every span fires but the discriminators' CUDA graph's
-EAGER = set(timer.SPAN_NAMES) - set(timer.DISC_GRAPH)
+# on the CPU both blocks of the step run eagerly: every span fires but those of their CUDA graphs
+EAGER = set(timer.SPAN_NAMES) - set(timer.DISC_GRAPH) - set(timer.GEN_GRAPH)
 
 
 @pytest.fixture(scope="module", autouse=True)
