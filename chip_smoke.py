@@ -836,6 +836,32 @@ def phase_bn(torch, dev, rec):
     print("  a float16 activation is refused by both wrappers (ValueError)")
 
 
+@contextlib.contextmanager
+def _plain_kernels():
+    """While open, each kernel wrapper that the port looks up by name when it
+    calls it is its plain PyTorch version, on the card as on the CPU: the
+    arm the kernels are held against."""
+    from pointcloududa_torch.ops import bn_kernel as bk
+    from pointcloududa_torch.ops import chamfer_kernel as ck
+    from pointcloududa_torch.ops import fps_kernel as fk
+
+    plain = [(ck, "forward_fused", ck.forward_fused_plain), (ck, "nn_directional", ck.nn_directional_plain),
+             (ck, "side_grad", ck.side_grad_plain), (bk, "stats_forward", bk.stats_forward_plain),
+             (bk, "stats_backward", bk.stats_backward_plain), (fk, "fps", fk.fps_plain)]
+    kept = [(module, name, getattr(module, name)) for module, name, _ in plain]
+    for module, name, fn in plain:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, fn in kept:
+            setattr(module, name, fn)
+
+
+# the two arms of a kernels-against-plain comparison
+ROUTES = (("kernels", contextlib.nullcontext), ("plain", _plain_kernels))
+
+
 def _launch_counts():
     from pointcloududa_torch.ops import bn_kernel as bk
     from pointcloududa_torch.ops import chamfer_kernel as ck
@@ -1021,10 +1047,7 @@ def phase_train_step(torch, dev, rec, card):
     from pointcloududa_torch.train.step import make_train_step
     from pointcloududa_torch.utils import timer
 
-    cfg = mscmrseg_default(
-        d1=True, d2=True, d4=True, bs=16, compute_dtype="float32",
-        chamfer_impl="pallas", bn_stats_impl="pallas",
-    )
+    cfg = mscmrseg_default(d1=True, d2=True, d4=True, bs=16, compute_dtype="float32")
     state = create_train_state(cfg, seed=0, device=dev)
     step = make_train_step(cfg, state.models, state.optimizers)
     batches = [_to_device(torch, synthetic_batch(cfg, cfg.bs, seed=s), dev) for s in range(STEPS)]
@@ -1074,8 +1097,6 @@ def phase_train_step(torch, dev, rec, card):
 
 def phase_step_parity(torch, dev, cfg):
     """(c, cont.) one step from identical weights: kernels vs plain impls."""
-    import dataclasses
-
     from pointcloududa_torch.data.synthetic import synthetic_batch
     from pointcloududa_torch.train.state import create_train_state
     from pointcloududa_torch.train.step import make_train_step
@@ -1084,13 +1105,11 @@ def phase_step_parity(torch, dev, cfg):
     torch.backends.cudnn.benchmark = False
     batch = _to_device(torch, synthetic_batch(cfg, cfg.bs, seed=11), dev)
     results = {}
-    for name, c in (
-        ("kernels", cfg),
-        ("plain", dataclasses.replace(cfg, chamfer_impl="jnp", bn_stats_impl="xla")),
-    ):
-        state = create_train_state(c, seed=0, device=dev)
-        step = make_train_step(c, state.models, state.optimizers)
-        _, metrics = step(state, batch)
+    for name, route in ROUTES:
+        with route():
+            state = create_train_state(cfg, seed=0, device=dev)
+            step = make_train_step(cfg, state.models, state.optimizers)
+            _, metrics = step(state, batch)
         results[name] = {k: float(v) for k, v in metrics.items()}
         del state, step
     worst = 0.0
@@ -1203,7 +1222,8 @@ def phase_fps(torch, dev, rec, card):
     masks[1, 0, :50] = 1
     masks[2] = torch.as_tensor(synthetic_blob_masks(1, size, seed=1)[0], device=dev)
     got = pcd.masks_to_point_clouds(masks, torch.Generator(device=dev).manual_seed(3))
-    want = pcd.masks_to_point_clouds(masks, torch.Generator(device=dev).manual_seed(3), impl="plain")
+    with _plain_kernels():
+        want = pcd.masks_to_point_clouds(masks, torch.Generator(device=dev).manual_seed(3))
     worst = max(worst, _max_err(got, want))
     _require(torch.equal(got, want), "masks_to_point_clouds: kernel and plain differ")
     _require(not bool(got[:2].any()) and bool(got[2].any()), "empty and 50-pixel masks must give zero clouds")
@@ -1270,10 +1290,7 @@ def phase_mmwhs(torch, dev, rec, card):
     from pointcloududa_torch.train.step import make_train_step
     from pointcloududa_torch.utils.timing import event_ms
 
-    cfg = mmwhs_default(
-        softmax=True, d2=True, d4=True, aug="light", bs=16, compute_dtype="float32",
-        chamfer_impl="pallas", bn_stats_impl="pallas",
-    )
+    cfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="light", bs=16, compute_dtype="float32")
     _require((cfg.crop_size, cfg.n_class, cfg.fc_inch) == (256, 5, 121), "not the MM-WHS widths")
     state = create_train_state(cfg, seed=0)  # no device given: the card
     _require(next(state.models[0].parameters()).device.type == "cuda", "the default device is not the card")
@@ -1358,13 +1375,11 @@ def phase_mmwhs(torch, dev, rec, card):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     results = {}
-    for name, c, fps_impl in (
-        ("kernels", cfg, "auto"),
-        ("plain", dataclasses.replace(cfg, chamfer_impl="jnp", bn_stats_impl="xla"), "plain"),
-    ):
-        st = create_train_state(c, seed=0)
-        b = make_device_preprocess(c, True, True, fps_impl=fps_impl)(torch.Generator(device=dev).manual_seed(11), raws[1])
-        _, metrics = make_train_step(c, st.models, st.optimizers)(st, b)
+    for name, route in ROUTES:
+        with route():
+            st = create_train_state(cfg, seed=0)
+            b = make_device_preprocess(cfg, True, True)(torch.Generator(device=dev).manual_seed(11), raws[1])
+            _, metrics = make_train_step(cfg, st.models, st.optimizers)(st, b)
         results[name] = (b, {k: float(v) for k, v in metrics.items()})
         del st
     torch.backends.cudnn.deterministic = False
@@ -1853,8 +1868,7 @@ def phase_heavy(torch, dev, rec, card, per_step):
     from pointcloududa_torch.train.step import make_train_step
     from pointcloududa_torch.utils.timing import event_ms
 
-    cfg = mscmrseg_default(d1=True, d2=True, d4=True, bs=16, aug="heavy", compute_dtype="float32",
-                           chamfer_impl="pallas", bn_stats_impl="pallas")
+    cfg = mscmrseg_default(d1=True, d2=True, d4=True, bs=16, aug="heavy", compute_dtype="float32")
     _require((cfg.crop_size, cfg.n_class, cfg.aug) == (224, 4, "heavy"), "not the MS-CMRSeg widths and default pipeline")
     state = create_train_state(cfg, seed=0)
     step = make_train_step(cfg, state.models, state.optimizers)
@@ -1935,8 +1949,7 @@ def phase_heavy(torch, dev, rec, card, per_step):
           + f"; the train step beside them {step_med:.2f} ms, on {card}")
 
     # MM-WHS -aug heavy: clouds regenerated from the warped masks by FPS
-    mcfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="heavy", bs=16, compute_dtype="float32",
-                         chamfer_impl="pallas", bn_stats_impl="pallas")
+    mcfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="heavy", bs=16, compute_dtype="float32")
     mstate = create_train_state(mcfg, seed=0)
     mstep = make_train_step(mcfg, mstate.models, mstate.optimizers)
     mpre = make_device_preprocess(mcfg, True, True)
@@ -2332,9 +2345,8 @@ def phase_bf16(torch, dev, rec, card, heavy_pre_ms, keep, tmp, f32_labels):
     from pointcloududa_torch.utils.timing import event_ms
 
     base = {
-        "mscmrseg": mscmrseg_default(d1=True, d2=True, d4=True, bs=16, chamfer_impl="pallas", bn_stats_impl="pallas"),
-        "mmwhs": mmwhs_default(softmax=True, d2=True, d4=True, aug="light", bs=16, chamfer_impl="pallas",
-                               bn_stats_impl="pallas"),
+        "mscmrseg": mscmrseg_default(d1=True, d2=True, d4=True, bs=16),
+        "mmwhs": mmwhs_default(softmax=True, d2=True, d4=True, aug="light", bs=16),
     }
     data = {
         "mscmrseg": [_to_device(torch, synthetic_batch(base["mscmrseg"], 16, seed=s), dev) for s in range(BF16_STEPS)],
@@ -2405,13 +2417,14 @@ def phase_bf16(torch, dev, rec, card, heavy_pre_ms, keep, tmp, f32_labels):
     torch.backends.cudnn.benchmark = False
     for workload, cfg0 in base.items():
         results = {}
-        for name, impls, fps_impl in (("kernels", {}, "auto"), ("plain", dict(chamfer_impl="jnp", bn_stats_impl="xla"), "plain")):
-            cfg = dataclasses.replace(cfg0, compute_dtype="bfloat16", **impls)
-            st = create_train_state(cfg, seed=0)
-            batch = data[workload][1]
-            if workload == "mmwhs":
-                batch = make_device_preprocess(cfg, True, True, fps_impl=fps_impl)(torch.Generator(device=dev).manual_seed(11), batch)
-            results[name] = {k: float(v) for k, v in make_train_step(cfg, st.models, st.optimizers)(st, batch)[1].items()}
+        cfg = dataclasses.replace(cfg0, compute_dtype="bfloat16")
+        for name, route in ROUTES:
+            with route():
+                st = create_train_state(cfg, seed=0)
+                batch = data[workload][1]
+                if workload == "mmwhs":
+                    batch = make_device_preprocess(cfg, True, True)(torch.Generator(device=dev).manual_seed(11), batch)
+                results[name] = {k: float(v) for k, v in make_train_step(cfg, st.models, st.optimizers)(st, batch)[1].items()}
             del st
         worst = {}
         for key, want in results["plain"].items():
@@ -2530,7 +2543,7 @@ DP_HELD = {"gen": DP_STEPS, "d1": DP_STEPS, "d2": DP_STEPS, "d4": 1}
 def _dp_config(workload: str, dtype: str):
     from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
 
-    common = dict(chamfer_impl="pallas", bn_stats_impl="pallas", compute_dtype=dtype, heinit=True, sgd=True, bs=16)
+    common = dict(compute_dtype=dtype, heinit=True, sgd=True, bs=16)
     if workload == "mscmrseg":
         return mscmrseg_default(d1=True, d2=True, d4=True, **common)
     return mmwhs_default(softmax=True, d2=True, d4=True, aug="light", **common)
@@ -2829,7 +2842,7 @@ def phase_host_route(torch, dev, rec, card, per_step, heavy_pre_step_ms, mmwhs_p
     -host_aug`` and MM-WHS's ``build_mmwhs_pipelines(cfg,
     host_cloud_regen=True)`` with ``UDATrainer(device_augment=False)``."""
     from pointcloududa_torch.cli import train_mmwhs, train_mscmrseg
-    from pointcloududa_torch.cli.common import resume_and_fit, with_kernels
+    from pointcloududa_torch.cli.common import resume_and_fit
     from pointcloududa_torch.data.build import build_mmwhs_pipelines
     from pointcloududa_torch.data.pointcloud import mask_to_point_cloud
     from pointcloududa_torch.data.synthetic import synthetic_blob_masks
@@ -2877,7 +2890,7 @@ def phase_host_route(torch, dev, rec, card, per_step, heavy_pre_step_ms, mmwhs_p
 
         def host_regen_main(argv):
             args = train_mmwhs.build_parser().parse_args(argv)
-            cfg = with_kernels(train_mmwhs.config_from_args(args))
+            cfg = train_mmwhs.config_from_args(args)
             print(train_mmwhs.appendix(cfg))
             train_iter, val_iters, device_augment = build_mmwhs_pipelines(cfg, workers=args.workers, host_cloud_regen=True)
             _require(device_augment is False, "host_cloud_regen=True must turn the device augmentation off")
@@ -3209,7 +3222,6 @@ def _step_launches(cfg, steps: int, evals_with_cloud: int = 0) -> dict:
 
 def phase_smokes(torch, dev, rec, card):
     """(o) the convergence smokes through their ``main`` at their defaults."""
-    from pointcloududa_torch.cli.common import with_kernels
     from pointcloududa_torch.config import mscmrseg_default
     from pointcloududa_torch.smoke import smoke_train, smoke_uda
 
@@ -3219,7 +3231,7 @@ def phase_smokes(torch, dev, rec, card):
         dices = smoke_train.main([])
     train_s = time.perf_counter() - t0
     counts = launched.counts
-    cfg = with_kernels(mscmrseg_default(bs=16, compute_dtype="bfloat16"))
+    cfg = mscmrseg_default(bs=16, compute_dtype="bfloat16")
     want = _step_launches(cfg, SMOKE_TRAIN_STEPS)
     _require(counts == want, f"smoke_train launched {counts}, derived {want}")
     _require(dices[-1][0] == SMOKE_TRAIN_STEPS - 1 and dices[-1][1] >= 0.85, f"smoke_train's last Dice {dices[-1]}")
@@ -3235,7 +3247,7 @@ def phase_smokes(torch, dev, rec, card):
         probes = smoke_uda.main(["--d4"])
     uda_s = time.perf_counter() - t0
     counts = launched.counts
-    cfg = with_kernels(mscmrseg_default(bs=16, d1=True, d2=True, d4=True, compute_dtype="bfloat16"))
+    cfg = mscmrseg_default(bs=16, d1=True, d2=True, d4=True, compute_dtype="bfloat16")
     n_probes = len(range(0, SMOKE_UDA_STEPS, SMOKE_UDA_EVERY)) + ((SMOKE_UDA_STEPS - 1) % SMOKE_UDA_EVERY > 0)
     want = _step_launches(cfg, SMOKE_UDA_STEPS, evals_with_cloud=n_probes)
     _require(counts == want, f"smoke_uda launched {counts}, derived {want}")

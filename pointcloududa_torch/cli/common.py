@@ -1,4 +1,4 @@
-"""What the CLIs share: the kernel selection, the ranks of a data-parallel
+"""What the CLIs share: the ranks of a data-parallel
 run (``-ndev``, ``-dist``), the warm restart (``-load_weight``) and the full
 resume (``-resume``), as ``pointcloududa_tpu/cli/train_mmwhs.py:176-236``
 has them; the generator that the evaluations restore from a checkpoint
@@ -17,13 +17,11 @@ from pointcloududa_torch.train.checkpoint import restore_net_state
 
 
 def with_kernels(cfg: UDAConfig) -> UDAConfig:
-    """``cfg`` with the hand-written CUDA kernels selected for the Chamfer
-    loss and the BatchNorm statistics. The selectors' defaults are the JAX
-    package's (``"auto"``, ``"xla"``: its XLA routes), which in this package
-    name the plain PyTorch versions the kernels are held against; a training
-    run from the command line goes through the kernels. (On CPU tensors the
-    wrappers compute with the plain versions, so a run with ``device="cpu"``
-    takes the same route through the code.)"""
+    """``cfg`` with the JAX package's kernel selectors set to its Pallas
+    kernels. This package reads neither selector (the tensor's device picks
+    the CUDA kernels or their plain versions), and none of its modules calls
+    this: it is kept only because the benchmark's harness
+    (``perfbench/harness.py``) imports it."""
     return dataclasses.replace(cfg, chamfer_impl="pallas", bn_stats_impl="pallas")
 
 

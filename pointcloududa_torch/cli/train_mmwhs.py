@@ -33,7 +33,7 @@ from __future__ import annotations
 import argparse
 
 from pointcloududa_torch import config as _config
-from pointcloududa_torch.cli.common import restored_generator, resume_and_fit, run_ranks, warm_restart, with_kernels
+from pointcloududa_torch.cli.common import restored_generator, resume_and_fit, run_ranks, warm_restart
 from pointcloududa_torch.config import appendix
 
 
@@ -199,7 +199,7 @@ def main(argv=None, device=None):
     """Train. ``device=None`` is the current CUDA device (raising without
     one); the CPU tests pass ``device="cpu"``."""
     args = build_parser().parse_args(argv)
-    cfg = with_kernels(config_from_args(args))
+    cfg = config_from_args(args)
     print(appendix(cfg))
     run_ranks(_train, cfg, args, device)
 

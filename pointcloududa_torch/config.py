@@ -95,18 +95,18 @@ class UDAConfig:
     data_dir: str = "./input"
 
     # implementation knobs (no reference equivalent). The names and values
-    # are the JAX package's; what each selects in this package:
+    # are the JAX package's, so that a config JSON moves between the two:
     compute_dtype: str = "float32"  # or "bfloat16", the training CLIs' default
     num_devices: int = 0  # 0 = all visible devices
-    # Chamfer loss: "pallas" = the hand-written CUDA kernels
-    # (csrc/chamfer.cu); "auto" and "jnp" = the plain PyTorch loss
+    # Chamfer loss route of the JAX package; this package does not read it
+    # (the tensor's device picks the CUDA kernels or their plain versions)
     chamfer_impl: str = "auto"
     # space-to-depth packed layouts of the JAX package; the port rejects them
     packed_level0: bool = False
     packed_level1: bool = False
     packed_compute: bool = False
-    # BN batch statistics: "pallas" = the hand-written CUDA kernels
-    # (csrc/bn_stats.cu), single device only; "xla" = the plain reduction
+    # BN batch statistics route of the JAX package; this package does not
+    # read it (as chamfer_impl)
     bn_stats_impl: str = "xla"
     # compute the logged-only target-domain chamfer diagnostic
     # (``loss_vert_target`` -- the reference computes it but only

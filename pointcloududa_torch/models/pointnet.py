@@ -26,6 +26,7 @@ from torch import nn
 
 from pointcloududa_torch.models.init import torch_linear_init
 from pointcloududa_torch.models.unet import Conv1d, Dropout, Linear, TwinBatchNorm, set_compute_dtype
+from pointcloududa_torch.ops.bn_kernel import plain_batch_stats
 from pointcloududa_torch.parallel import collectives
 
 
@@ -34,6 +35,8 @@ class Norm1d(TwinBatchNorm):
     plain statistics; for a single sample (of the global batch, under a data
     mesh), normalise over the points (B, C, N) or the features (B, C)
     without running stats."""
+
+    statistics = staticmethod(plain_batch_stats)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if collectives.global_batch_size(x.shape[0]) > 1:

@@ -11,8 +11,8 @@ convolutions run NCHW.
 
 BatchNorm is :class:`TwinBatchNorm`: flax's fast-variance normalisation in
 f32 and torch's running-statistics update (momentum 0.1, unbiased n/(n-1)
-variance), with the batch statistics from the CUDA kernel when ``bn_kernel``
-is set. The first block's 1x1 "dense remix" conv (``conv1_1``) is built but
+variance), with the batch statistics from ``ops/bn_kernel.py`` (the CUDA
+kernels for tensors on the card). The first block's 1x1 "dense remix" conv (``conv1_1``) is built but
 never applied, as in the reference, so parameter counts line up.
 
 ``compute_dtype`` (float32 or bfloat16) is the JAX models' compute dtype,
@@ -142,9 +142,10 @@ class TwinBatchNorm(nn.Module):
     variance (reference ``src/networks/unet.py:28``). Parameters and buffers
     carry ``nn.BatchNorm2d``'s names."""
 
-    def __init__(self, num_features: int, bn_kernel: bool = False, momentum: float = 0.1, eps: float = 1e-5):
+    statistics = staticmethod(batch_stats)  # the batch's (mean, var)
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
-        self.bn_kernel = bn_kernel
         self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
@@ -155,7 +156,7 @@ class TwinBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = batch_stats(x.contiguous(), use_kernel=self.bn_kernel)
+            mean, var = self.statistics(x.contiguous())
             with torch.no_grad():
                 n = collectives.global_batch_size(x.numel() // x.shape[1])  # the global batch's count
                 self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
@@ -175,8 +176,7 @@ class DoubleConv(nn.Module):
     reference's ``nn.Sequential`` so the ``state_dict`` keys match
     (``unet.py:23-30``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, *, batch_norm: bool = True, dropout: bool = False,
-                 bn_kernel: bool = False):
+    def __init__(self, in_ch: int, out_ch: int, *, batch_norm: bool = True, dropout: bool = False):
         super().__init__()
         layers: list[nn.Module] = []
         for j in range(2):
@@ -184,7 +184,7 @@ class DoubleConv(nn.Module):
             if dropout and j == 0:
                 layers.append(Dropout(0.5))
             if batch_norm:
-                layers.append(TwinBatchNorm(out_ch, bn_kernel))
+                layers.append(TwinBatchNorm(out_ch))
         for i, layer in enumerate(layers):
             self.add_module(str(i), layer)
 
@@ -203,7 +203,7 @@ class Encoder(nn.Module):
     the previous pooled tensor -> 1x1 conv + LeakyReLU) -> 2x2 max-pool
     (reference ``unet.py:35-51``)."""
 
-    def __init__(self, filters=32, in_channels=3, n_block=4, batch_norm=True, bn_kernel=False):
+    def __init__(self, filters=32, in_channels=3, n_block=4, batch_norm=True):
         super().__init__()
         self.n_block = n_block
         for i in range(n_block):
@@ -211,7 +211,7 @@ class Encoder(nn.Module):
             in_ch = in_channels if i == 0 else filters * 2 ** (i - 1)
             if i == 0:
                 self.conv1_1 = _conv_lrelu(in_ch * 3, out_ch, 1)  # built, never applied
-            self.add_module(f"encoder{i + 1}", DoubleConv(in_ch, out_ch, batch_norm=batch_norm, bn_kernel=bn_kernel))
+            self.add_module(f"encoder{i + 1}", DoubleConv(in_ch, out_ch, batch_norm=batch_norm))
             if i > 0:
                 self.add_module(f"conv1_{i + 1}", _conv_lrelu(out_ch + in_ch, out_ch, 1))
 
@@ -282,7 +282,7 @@ class Decoder(nn.Module):
     """Up-blocks: nearest 2x + conv -> concat [skip, up] (LIFO skips) ->
     double conv (reference ``unet.py:100-136``)."""
 
-    def __init__(self, filters=32, n_block=4, batch_norm=True, drop=False, bn_kernel=False):
+    def __init__(self, filters=32, n_block=4, batch_norm=True, drop=False):
         super().__init__()
         self.n_block = n_block
         for i in reversed(range(n_block)):
@@ -292,10 +292,7 @@ class Decoder(nn.Module):
                 nn.Sequential(nn.Upsample(scale_factor=2, mode="nearest"),
                               Conv2d(filters * 2 ** (i + 1), out_ch, 3, padding=1)),
             )
-            self.add_module(
-                f"decoder2_{i + 1}",
-                DoubleConv(2 * out_ch, out_ch, batch_norm=batch_norm, dropout=drop, bn_kernel=bn_kernel),
-            )
+            self.add_module(f"decoder2_{i + 1}", DoubleConv(2 * out_ch, out_ch, batch_norm=batch_norm, dropout=drop))
 
     def forward(self, x, skips: Sequence[torch.Tensor], generator=None):
         skips = list(skips)
@@ -312,20 +309,18 @@ class SegmentationPointModel(nn.Module):
     ``forward(x)`` takes NHWC images and returns the reference's 3-tuple
     ``(logits, None, points)``: NHWC logits with ``n_class`` channels and the
     (B, 300, 3) cloud under ``pointnet`` (else None), both float32 in either
-    compute dtype. ``bn_kernel`` takes the BatchNorm statistics from the CUDA
-    kernel (``bn_stats_impl="pallas"``)."""
+    compute dtype."""
 
     def __init__(self, filters=32, in_channels=3, n_block=4, bottleneck_depth=4, n_class=4,
                  pointnet=False, fc_inch=81, extpn=False, batchnorm=True, drop=False, heinit=False,
-                 bn_kernel=False, generator: torch.Generator | None = None,
-                 compute_dtype: torch.dtype = torch.float32):
+                 generator: torch.Generator | None = None, compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.encoder = Encoder(filters, in_channels, n_block, batchnorm, bn_kernel)
+        self.encoder = Encoder(filters, in_channels, n_block, batchnorm)
         self.bottleneck = Bottleneck(filters, n_block, bottleneck_depth)
         if pointnet:
             self.pointNet = PointHead(filters * 2**n_block, 300, fc_inch, 512 * filters // 32, extpn)
-        self.decoder = Decoder(filters, n_block, batchnorm, drop, bn_kernel)
+        self.decoder = Decoder(filters, n_block, batchnorm, drop)
         # float32 whatever the compute dtype: early in training the gaps
         # between class logits are below bfloat16's resolution
         self.classifier = nn.Conv2d(filters, n_class, 1)

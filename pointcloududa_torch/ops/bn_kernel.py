@@ -243,13 +243,23 @@ def bn_stats(x: torch.Tensor):
     return _BNStats.apply(x)
 
 
-def batch_stats(x: torch.Tensor, use_kernel: bool = True):
+def batch_stats(x: torch.Tensor):
     """flax-equivalent (mean, var) over every axis but dim 1, f32, with the
-    fast variance clipped at 0. ``use_kernel=False`` is the plain reduction
-    (``bn_stats_impl="xla"``). Under a data mesh the (mean, mean of squares)
-    pair is the global batch's: one all-reduce of the rank's pair, before the
-    variance is formed (``parallel/collectives.py``)."""
-    mean, meansq = bn_stats(x) if use_kernel else stats_forward_plain(x)
+    fast variance clipped at 0, through :func:`bn_stats`: the kernels for a
+    CUDA tensor, their plain versions for a CPU one. Under a data mesh the
+    (mean, mean of squares) pair is the global batch's: one all-reduce of the
+    rank's pair, before the variance is formed (``parallel/collectives.py``)."""
+    return _mean_var(*bn_stats(x))
+
+
+def plain_batch_stats(x: torch.Tensor):
+    """:func:`batch_stats` from the plain reduction, through autograd, on any
+    device: the statistics of D4's norms, which the JAX package never takes
+    from its kernel (``pointcloududa_tpu/models/pointnet.py:60``)."""
+    return _mean_var(*stats_forward_plain(x))
+
+
+def _mean_var(mean: torch.Tensor, meansq: torch.Tensor):
     if collectives.active():
         mean, meansq = collectives.global_mean(torch.stack([mean, meansq])).unbind(0)
     return mean, torch.clamp_min(meansq - torch.square(mean), 0.0)

@@ -306,7 +306,11 @@ def chamfer_forward(x: torch.Tensor, y: torch.Tensor):
     return _large_forward_loss(x, y)
 
 
-class _ChamferLoss(torch.autograd.Function):
+class ChamferLoss(torch.autograd.Function):
+    """The rank's mean Chamfer loss of (B, N, 3) and (B, M, 3) clouds, its
+    forward and backward through the wrappers (the kernels for CUDA tensors,
+    their plain versions for CPU ones)."""
+
     @staticmethod
     def forward(ctx, x, y):
         ctx.dtypes = (x.dtype, y.dtype)
@@ -331,7 +335,7 @@ def chamfer_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Symmetric Chamfer loss of (B, N, 3) and (B, M, 3) clouds. The kernels
     give the mean over this rank's rows; under a data mesh that is averaged
     over the ranks, which hold as many rows each (``parallel/collectives.py``)."""
-    return collectives.global_mean(_ChamferLoss.apply(x, y))
+    return collectives.global_mean(ChamferLoss.apply(x, y))
 
 
 def reset_launches() -> None:

@@ -54,25 +54,12 @@ def grid_coords(h: int, w: int, device) -> torch.Tensor:
     return torch.stack([zs, yy.repeat(3), xx.repeat(3)], dim=-1)
 
 
-def _fps(impl: str):
-    """``"auto"``: the wrapper, which launches the kernel for CUDA tensors
-    and takes the plain version for CPU tensors; ``"plain"``: the plain
-    version wherever the tensors lie (what the checks on the card hold the
-    kernel against)."""
-    if impl == "auto":
-        return fps_kernel.fps
-    if impl == "plain":
-        return fps_kernel.fps_plain
-    raise ValueError(f"impl must be 'auto' or 'plain', got {impl!r}")
-
-
 @torch.no_grad()
 def masks_to_point_clouds_from_starts(
     masks: torch.Tensor,
     starts: torch.Tensor,
     number_points: int = NUM_POINTS,
     min_mask_sum: int = 50,
-    impl: str = "auto",
 ) -> torch.Tensor:
     """Everything after the random draw: (B, H, W) integer masks and the (B,)
     int32 index of each cloud's first point in its candidate grid ->
@@ -82,7 +69,7 @@ def masks_to_point_clouds_from_starts(
     cand = candidates(masks)
     coords = grid_coords(h, w, masks.device)
     nonempty = torch.sum(masks.reshape(b, -1), dim=1) > min_mask_sum
-    clouds = _fps(impl)(cand, coords.expand(b, -1, -1), starts, number_points)
+    clouds = fps_kernel.fps(cand, coords.expand(b, -1, -1), starts, number_points)
     return torch.where(nonempty[:, None, None], clouds, torch.zeros((), dtype=clouds.dtype, device=clouds.device))
 
 
@@ -104,12 +91,9 @@ def masks_to_point_clouds(
     generator: torch.Generator,
     number_points: int = NUM_POINTS,
     min_mask_sum: int = 50,
-    impl: str = "auto",
 ) -> torch.Tensor:
     """(B, H, W) integer masks -> (B, number_points, 3) float clouds with
     (z, y, x) voxel coords over the x3 slab. The work runs where ``masks``
-    lies; ``generator`` must be on that device. ``impl="auto"`` launches the
-    FPS kernel for CUDA tensors and takes its plain version for CPU tensors;
-    ``"plain"`` takes the plain version anywhere."""
+    lies; ``generator`` must be on that device."""
     starts = draw_starts(masks, generator)
-    return masks_to_point_clouds_from_starts(masks, starts, number_points, min_mask_sum, impl)
+    return masks_to_point_clouds_from_starts(masks, starts, number_points, min_mask_sum)

@@ -14,7 +14,6 @@ and keeps its flags, task code, step counts, probes and bars:
   and ``tests/test_d4_quality_gate.py`` (D2+D4 beats D2 alone).
 
 Run one with ``python -m pointcloududa_torch.smoke.<module> [flags]`` on the
-card, or ``main(argv, device="cpu")`` from Python for the CPU. Every run goes
-through the hand-written kernels (``cli/common.py:with_kernels``), as a
-training run from the command line does.
+card, or ``main(argv, device="cpu")`` from Python for the CPU. On the card
+every run goes through the hand-written kernels, as a training run does.
 """

@@ -80,18 +80,17 @@ ARMS = ("none", "d2", "d2d4", "d4aux")
 
 
 def arm_config(arm: str, size=32, bs=8, dr=0.05, wp=1.0, d4lr=2.5e-5):
-    """The arm's configuration (the JAX tool's), through the kernels."""
-    from pointcloududa_torch.cli.common import with_kernels
+    """The arm's configuration (the JAX tool's)."""
     from pointcloududa_torch.config import mscmrseg_default
 
     if arm not in ARMS:
         raise ValueError(f"arm must be one of {ARMS} (got {arm!r})")
     d2 = arm in ("d2", "d2d4", "d4aux")
     d4 = arm == "d2d4"
-    return with_kernels(mscmrseg_default(
+    return mscmrseg_default(
         crop_size=size, fc_inch=9, n_block=2, filters=8, bs=bs,
         d2=d2, d4=d4, d4aux=(arm == "d4aux"), dr=dr, wp=wp, d4lr=d4lr,
-    ))
+    )
 
 
 def make_pool(seed: int, point: bool, size=32, bs=8, pool_n=6, shape="disk", src_distractor=False):

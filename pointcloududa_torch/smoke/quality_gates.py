@@ -54,14 +54,13 @@ def _style_target(imgs, rng):
 
 
 def uda_config(uda: bool, size=32, bs=8):
-    """The UDA gate's arm (D1+D2 when ``uda``, else none), through the kernels."""
-    from pointcloududa_torch.cli.common import with_kernels
+    """The UDA gate's arm (D1+D2 when ``uda``, else none)."""
     from pointcloududa_torch.config import mscmrseg_default
 
-    return with_kernels(mscmrseg_default(
+    return mscmrseg_default(
         crop_size=size, fc_inch=0, n_block=2, filters=8, bs=bs,
         d1=uda, d2=uda, dr=0.05,
-    ))
+    )
 
 
 def uda_pool(seed: int, size=32, bs=8):

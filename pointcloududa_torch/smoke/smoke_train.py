@@ -54,16 +54,15 @@ def main(argv=None, device=None):
     p.add_argument("--bar", type=float, default=0.85)
     args = p.parse_args(argv)
 
-    from pointcloududa_torch.cli.common import with_kernels
     from pointcloududa_torch.config import mscmrseg_default
     from pointcloududa_torch.train.state import create_train_state
     from pointcloududa_torch.train.step import make_train_step
     from pointcloududa_torch.utils.device import describe
 
-    cfg = with_kernels(mscmrseg_default(
+    cfg = mscmrseg_default(
         crop_size=args.size, fc_inch=81 if args.size == 224 else 1, bs=args.bs,
         lr=args.lr, compute_dtype=args.dtype,
-    ))
+    )
     state = create_train_state(cfg, seed=0, device=device)
     step = make_train_step(cfg, state.models, state.optimizers)
     rng = np.random.default_rng(0)

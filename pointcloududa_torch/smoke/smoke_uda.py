@@ -78,13 +78,12 @@ def main(argv=None, device=None):
     p.add_argument("--dtype", default="bfloat16")
     args = p.parse_args(argv)
 
-    from pointcloududa_torch.cli.common import with_kernels
     from pointcloududa_torch.config import mscmrseg_default
     from pointcloududa_torch.train.state import create_train_state
     from pointcloududa_torch.train.step import make_eval_step, make_train_step
     from pointcloududa_torch.utils.device import describe
 
-    cfg = with_kernels(mscmrseg_default(
+    cfg = mscmrseg_default(
         crop_size=args.size,
         fc_inch=81 if args.size == 224 else 1,
         bs=args.bs,
@@ -92,7 +91,7 @@ def main(argv=None, device=None):
         d2=True,
         d4=args.d4,
         compute_dtype=args.dtype,
-    ))
+    )
     state = create_train_state(cfg, seed=0, device=device)
     step = make_train_step(cfg, state.models, state.optimizers)
     eval_step = make_eval_step(cfg, state.models[0])

@@ -57,8 +57,7 @@ from pointcloududa_torch.utils import timer
 from pointcloududa_torch.utils.timer import trace_annotation
 
 
-def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, device=None, fps_impl: str = "auto",
-                           mesh=None):
+def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, device=None, mesh=None):
     """Raw-batch -> model-batch transform on ``device`` (``None`` = the
     current CUDA device; raises without one).
 
@@ -82,10 +81,6 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
     packages the same numbers. ``train=False`` returns ``process_eval(raw)``.
     A train call on a batch already on the card does not wait for the card
     (``chip_smoke.py`` phase (h) checks it for the heavy pipeline).
-
-    ``fps_impl`` goes to ``masks_to_point_clouds_from_starts``: ``"auto"``
-    launches the FPS kernel on the card; ``"plain"`` is what the checks on
-    the card hold it against.
 
     ``mesh``: a data mesh whose rank holds rows ``lo:hi`` of each global
     batch. Every random draw (the augmentations', the FPS starts') is then
@@ -144,7 +139,7 @@ def make_device_preprocess(cfg: UDAConfig, train: bool, device_augment: bool, de
     def cloud(generator, mask, starts):
         if starts is None:
             starts = draw_starts(mask, generator)
-        return masks_to_point_clouds_from_starts(mask, starts, impl=fps_impl) / 255.0
+        return masks_to_point_clouds_from_starts(mask, starts) / 255.0
 
     span = trace_annotation(timer.PREPROCESS)
     span_augment, span_clouds, span_finish = map(trace_annotation, timer.PREPROCESS_PARTS)

@@ -71,7 +71,6 @@ def build_generator(cfg: UDAConfig, generator: Optional[torch.Generator] = None)
         batchnorm=cfg.batchnorm,
         drop=cfg.drop,
         heinit=cfg.heinit,
-        bn_kernel=cfg.bn_stats_impl == "pallas",
         generator=generator,
         compute_dtype=compute_dtype(cfg),
     )

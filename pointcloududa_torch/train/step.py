@@ -29,7 +29,6 @@ one-process step over the global batch.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import Dict
 
 import torch
@@ -49,12 +48,12 @@ TARGET_LABEL = 0.0
 _SPAN = {name: trace_annotation(name) for name in (timer.STEP,) + timer.STEP_PARTS}
 
 
-def _chamfer(cfg: UDAConfig):
-    """``"pallas"`` selects the CUDA kernels; ``"auto"`` and ``"jnp"`` the
-    plain PyTorch loss, as the JAX step resolves them."""
-    if cfg.chamfer_impl == "pallas":
-        return chamfer_kernel.chamfer_loss
-    return losses.chamfer_loss
+def _chamfer(x, y, sample_mask=None):
+    """The kernels' Chamfer loss; a padded tail's batch takes the plain
+    masked loss."""
+    if sample_mask is None:
+        return chamfer_kernel.chamfer_loss(x, y)
+    return losses.chamfer_loss(x, y, sample_mask=sample_mask)
 
 
 def _activate(cfg: UDAConfig, logits):
@@ -123,7 +122,6 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
     step's :class:`StepGraphs` of phases 1-2 and 3-5."""
     gen, d1, d2, d4 = models
     gen_opt, d1_opt, d2_opt, d4_opt = optimizers
-    chamfer = _chamfer(cfg)
     device = _device_of(gen)
     gen_params = list(gen.parameters())
     discs = [d for d in (d1, d2, d4) if d is not None]
@@ -156,7 +154,6 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
         img_s, mask_s, img_t = b["img_s"], b["mask_s"].to(torch.float32), b["img_t"]
         vert_s, vert_t = b.get("vert_s"), b.get("vert_t")
         sm = b.get("sample_mask")
-        chamfer_m = chamfer if sm is None else partial(losses.chamfer_loss, sample_mask=sm)
 
         # ---- phases 1+2: generator loss (supervised + adversarial) ---
         with _SPAN["uda.step.gen_forward"]:
@@ -166,7 +163,7 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
             metrics = {}
             sup = l1 + l2
             if cfg.point_head:
-                l3 = chamfer_m(pv_s, vert_s)
+                l3 = _chamfer(pv_s, vert_s, sm)
                 metrics["ver_s_loss"] = l3
                 sup = sup + cfg.wp * l3
             unc_s = _entropy_map(cfg, probs_s)
@@ -182,7 +179,7 @@ def make_train_step(cfg: UDAConfig, models, optimizers, mesh=None):
             if cfg.point_head and vert_t is not None:
                 # logged only, never backpropagated (train_mscmrseg.py:230-231)
                 with torch.no_grad():
-                    metrics["ver_t_loss"] = chamfer_m(pv_t.detach(), vert_t)
+                    metrics["ver_t_loss"] = _chamfer(pv_t.detach(), vert_t, sm)
             if cfg.d2:
                 adv = adv + cfg.w2 * cfg.dr * losses.bce_with_logits(d2(unc_t), SOURCE_LABEL, sm)
             if cfg.d4:
@@ -256,7 +253,6 @@ def make_eval_step(cfg: UDAConfig, gen, mesh=None):
     Dice (``train_mscmrseg.py:53-99``), the generator in eval mode. Under
     ``mesh`` the metrics are the global batch's and ``logits`` this rank's
     rows."""
-    chamfer = _chamfer(cfg)
     device = _device_of(gen)
 
     def binary_dice(pred_lbl, true_lbl, c, sm):
@@ -282,9 +278,9 @@ def make_eval_step(cfg: UDAConfig, gen, mesh=None):
         mask = b["mask"].to(torch.float32)
         l1, l2 = _supervised_loss(cfg, _activate(cfg, o), mask, sm)
         loss = l1 + l2
-        vert_loss = torch.tensor(-1.0, device=device)
+        vert_loss = torch.full((), -1.0, device=device)
         if cfg.point_head:
-            vert_loss = chamfer(pv, b["vert"]) if sm is None else losses.chamfer_loss(pv, b["vert"], sample_mask=sm)
+            vert_loss = _chamfer(pv, b["vert"], sm)
             if cfg.workload == "mscmrseg" and cfg.d4:
                 # MS-CMRSeg adds the chamfer term to the reported valid loss
                 # (train_mscmrseg.py:72-78); MM-WHS does not (train_mmwhs.py:81)

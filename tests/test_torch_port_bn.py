@@ -58,10 +58,9 @@ def test_nchw_batch_stats_match_jax_nhwc():
     x = np.random.default_rng(1).normal(size=(2, 8, 8, 32)).astype(np.float32)
     want_mean, want_var = bn_pallas.batch_stats_nhwc(jnp.asarray(x))
     xt = torch.tensor(x.transpose(0, 3, 1, 2).copy())
-    for use_kernel in (True, False):
-        mean, var = bn_kernel.batch_stats(xt, use_kernel=use_kernel)
-        np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean), atol=1e-6)
-        np.testing.assert_allclose(var.numpy(), np.asarray(want_var), atol=1e-5)
+    mean, var = bn_kernel.batch_stats(xt)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want_mean), atol=1e-6)
+    np.testing.assert_allclose(var.numpy(), np.asarray(want_var), atol=1e-5)
 
 
 def test_kernel_and_plain_gradients_agree():
@@ -78,7 +77,8 @@ def test_kernel_and_plain_gradients_agree():
 @pytest.mark.parametrize("bn_kernel_on", [True, False])
 def test_twin_batchnorm_matches_jax(bn_kernel_on):
     """Train forward and the running statistics after it (torch momentum 0.1
-    = flax 0.9, unbiased running variance), then the eval forward."""
+    = flax 0.9, unbiased running variance), then the eval forward, against
+    the JAX module with its Pallas statistics and without."""
     rng = np.random.default_rng(2)
     x = rng.normal(size=(4, 6, 6, 16)).astype(np.float32) * 1.5 + 0.5
     scale = rng.uniform(0.5, 1.5, 16).astype(np.float32)
@@ -89,7 +89,7 @@ def test_twin_batchnorm_matches_jax(bn_kernel_on):
     variables = {"params": {"scale": scale, "bias": bias}, "batch_stats": {"mean": r_mean, "var": r_var}}
     want, mut = jm.apply(variables, jnp.asarray(x), use_running_average=False, mutable=["batch_stats"])
 
-    tm = TwinBatchNorm(16, bn_kernel=bn_kernel_on)
+    tm = TwinBatchNorm(16)
     tm.load_state_dict({
         "weight": torch.tensor(scale), "bias": torch.tensor(bias), "running_mean": torch.tensor(r_mean),
         "running_var": torch.tensor(r_var), "num_batches_tracked": torch.tensor(0),

@@ -25,7 +25,7 @@ import torch
 from pointcloududa_tpu.cli import train_mmwhs as ref_mmwhs
 from pointcloududa_tpu.cli import train_mscmrseg as ref_mscmrseg
 from pointcloududa_torch import config as port_config
-from pointcloududa_torch.cli import common, train_mmwhs, train_mscmrseg
+from pointcloududa_torch.cli import train_mmwhs, train_mscmrseg
 from pointcloududa_torch.train import checkpoint as ckpt
 from test_torch_port_data import make_mmwhs_dataset, make_mscmrseg_dataset
 from test_torch_port_step import one_torch_thread  # noqa: F401
@@ -83,8 +83,6 @@ def test_flag_defaults_differ_only_in_the_compute_type():
     for port, ref in ((train_mmwhs, ref_mmwhs), (train_mscmrseg, ref_mscmrseg)):
         a, b = vars(port.build_parser().parse_args([])), vars(ref.build_parser().parse_args([]))
         assert {k for k in a if a[k] != b[k]} == set() and a["dtype"] == "bfloat16"
-    cfg = common.with_kernels(train_mmwhs.config_from_args(train_mmwhs.build_parser().parse_args([])))
-    assert (cfg.chamfer_impl, cfg.bn_stats_impl) == ("pallas", "pallas")  # a command-line run goes through the kernels
 
 
 class _Trained(Exception):

@@ -301,20 +301,27 @@ def test_bn_wrapper_rejects_what_the_kernel_does_not_take(dev):
         bn_kernel.stats_forward(x.double())
 
 
-def test_generator_with_kernel_bn_matches_plain_bn(dev):
+def test_generator_with_kernel_bn_matches_plain_bn(dev, monkeypatch):
+    """The generator on the card, its BatchNorm statistics from the kernels,
+    against the same weights with the wrappers' plain versions in their
+    place."""
     from pointcloududa_torch.models import SegmentationPointModel
 
     torch.backends.cudnn.deterministic = True
     try:
         a = SegmentationPointModel(filters=8, pointnet=True, fc_inch=1, generator=torch.Generator().manual_seed(0))
-        b = SegmentationPointModel(filters=8, pointnet=True, fc_inch=1, bn_kernel=True)
+        b = SegmentationPointModel(filters=8, pointnet=True, fc_inch=1)
         b.load_state_dict(a.state_dict())
         a, b = a.to(dev), b.to(dev)
         x = torch.rand(2, 96, 96, 3, generator=torch.Generator().manual_seed(1)).to(dev)
         outs = []
         for model in (a, b):
-            logits, _, pts = model(x)
-            (logits.square().mean() + pts.mean()).backward()
+            with monkeypatch.context() as plain:
+                if model is a:
+                    plain.setattr(bn_kernel, "stats_forward", bn_kernel.stats_forward_plain)
+                    plain.setattr(bn_kernel, "stats_backward", bn_kernel.stats_backward_plain)
+                logits, _, pts = model(x)
+                (logits.square().mean() + pts.mean()).backward()
             outs.append((logits.detach(), model.classifier.weight.grad))
         for u, w in zip(*outs):
             torch.testing.assert_close(u, w, rtol=1e-4, atol=1e-5)
@@ -548,8 +555,7 @@ def test_trainer_epoch_on_the_card_with_a_prefetcher(dev, tmp_path):
     from pointcloududa_torch.ops import fps_kernel
     from pointcloududa_torch.train.loop import UDATrainer
 
-    cfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="light", filters=8, crop_size=96, fc_inch=1, bs=4, vert_t_every=2,
-                        chamfer_impl="pallas", bn_stats_impl="pallas")
+    cfg = mmwhs_default(softmax=True, d2=True, d4=True, aug="light", filters=8, crop_size=96, fc_inch=1, bs=4, vert_t_every=2)
     placed_in = []
 
     class Batches:
@@ -577,7 +583,7 @@ def test_trainer_epoch_on_the_card_with_a_prefetcher(dev, tmp_path):
     assert len(placed_in) == 2 and all(s != main_stream for s in placed_in)  # copied on the prefetcher's own stream
 
 
-# the benchmark's two paper configurations (perfbench/configs/), the kernels selected
+# the benchmark's two paper configurations (perfbench/configs/)
 PAPER = {
     "mscmrseg": dict(d1=True, d2=True, d4=True, lr=1e-3, d1lr=2.5e-5, d2lr=2.5e-5, d4lr=2.5e-5, dr=0.01),
     "mmwhs": dict(d1=True, d2=True, d4=True, ft=True, extd4=True, softmax=True, d1_on_probs=True, entropy_norm=True,
@@ -596,11 +602,10 @@ def deterministic(dev):
 
 
 def _paper_cfg(name, **kw):
-    from pointcloududa_torch.cli.common import with_kernels
     from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
 
     make = mscmrseg_default if name == "mscmrseg" else mmwhs_default
-    return with_kernels(make(**{**PAPER[name], "compute_dtype": "bfloat16", **kw}))
+    return make(**{**PAPER[name], "compute_dtype": "bfloat16", **kw})
 
 
 def _graph_run(cfg, batches, graphed):
@@ -703,7 +708,7 @@ def test_a_restore_mid_run_recaptures_and_matches_the_uninterrupted_run(determin
     from pointcloududa_torch.utils import timer
 
     cfg = mmwhs_default(**{**PAPER["mmwhs"], "aug": "light", "filters": 8, "crop_size": 96, "fc_inch": 1, "bs": 4,
-                           "chamfer_impl": "pallas", "bn_stats_impl": "pallas", "compute_dtype": "bfloat16"})
+                           "compute_dtype": "bfloat16"})
 
     class Batches:
         steps_per_epoch = 3
@@ -803,13 +808,12 @@ def test_the_side_stream_preprocess_hands_the_step_the_main_streams_batches(dete
     main stream: the batches ``pre_train`` hands the step bit for bit, the
     epoch's metrics and the state after it bit-equal; the preprocess ran on
     the side stream, the step on the main one."""
-    from pointcloududa_torch.cli.common import with_kernels
     from pointcloududa_torch.config import mmwhs_default, mscmrseg_default
     from pointcloududa_torch.train.loop import UDATrainer
 
     make = mscmrseg_default if name == "mscmrseg" else mmwhs_default
-    cfg = with_kernels(make(**{**PAPER[name], "aug": aug, "filters": 8, "crop_size": 96, "fc_inch": 1, "bs": 4,
-                               "compute_dtype": "float32"}))
+    cfg = make(**{**PAPER[name], "aug": aug, "filters": 8, "crop_size": 96, "fc_inch": 1, "bs": 4,
+                  "compute_dtype": "float32"})
     raws = _raw_batches(cfg, 3)
 
     class Batches:

@@ -241,6 +241,3 @@ def test_masks_to_point_clouds_draws_a_candidate_start():
     assert bool(cand[torch.arange(2)[:, None], z, y, x].all())
     firsts = {tuple(tpc.masks_to_point_clouds(masks, gen, number_points=1)[0, 0].tolist()) for _ in range(8)}
     assert len(firsts) > 1  # the start is random
-    assert torch.equal(a, tpc.masks_to_point_clouds(masks, torch.Generator().manual_seed(5), number_points=30, impl="plain"))
-    with pytest.raises(ValueError):
-        tpc.masks_to_point_clouds(masks, gen, impl="pallas")

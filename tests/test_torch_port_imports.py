@@ -42,8 +42,7 @@ SCRIPT = textwrap.dedent(
     from pointcloududa_torch.train.state import create_train_state
     from pointcloududa_torch.train.step import make_train_step
 
-    cfg = mscmrseg_default(d1=True, d2=True, d4=True, filters=4, crop_size=96, fc_inch=1, bs=2,
-                           chamfer_impl="pallas", bn_stats_impl="pallas")
+    cfg = mscmrseg_default(d1=True, d2=True, d4=True, filters=4, crop_size=96, fc_inch=1, bs=2)
     state = create_train_state(cfg, seed=0, device="cpu")
     state, metrics = make_train_step(cfg, state.models, state.optimizers)(state, synthetic_batch(cfg, 2))
     assert all(bool(v.isfinite()) for v in metrics.values()), metrics

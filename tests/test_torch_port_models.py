@@ -118,21 +118,47 @@ def test_generator_matches_jax(kw):
     _stats_close(tm_nodrop, mut["batch_stats"], convert)
 
 
-def test_generator_kernel_bn_matches_plain_bn():
-    """bn_kernel (bn_stats_impl="pallas") is an execution choice: on the CPU
-    both routes give the same logits, gradients and running statistics."""
+def test_generator_kernel_bn_matches_plain_bn(monkeypatch):
+    """On the CPU the generator's BatchNorm statistics are the plain
+    reduction, bit for bit: the same logits and running statistics as with
+    autograd through ``stats_forward_plain`` in the kernels' place, and
+    gradients to rtol 1e-5, atol 1e-6 (the kernels' backward formula)."""
+    from pointcloududa_torch.ops import bn_kernel
+
     x = torch.tensor(np.random.default_rng(1).uniform(size=(2, 96, 96, 3)).astype(np.float32))
     a = SegmentationPointModel(filters=8, pointnet=True, fc_inch=1, generator=torch.Generator().manual_seed(0))
-    b = SegmentationPointModel(filters=8, pointnet=True, fc_inch=1, bn_kernel=True)
+    b = SegmentationPointModel(filters=8, pointnet=True, fc_inch=1)
     b.load_state_dict(a.state_dict())
     outs = []
     for m in (a, b):
+        if m is b:
+            monkeypatch.setattr(bn_kernel, "bn_stats", bn_kernel.stats_forward_plain)
         logits, _, pts = m(x)
         (logits.square().mean() + pts.mean()).backward()
-        outs.append((logits.detach(), m.encoder.encoder1.get_submodule("0").weight.grad,
-                     m.decoder.decoder2_1.get_submodule("5").running_var))
-    for u, w in zip(*outs):
-        torch.testing.assert_close(u, w, rtol=1e-5, atol=1e-6)
+        outs.append((logits.detach(), m.decoder.decoder2_1.get_submodule("5").running_var,
+                     m.encoder.encoder1.get_submodule("0").weight.grad))
+    for u, w in zip(outs[0][:2], outs[1][:2]):
+        assert torch.equal(u, w)
+    torch.testing.assert_close(outs[0][2], outs[1][2], rtol=1e-5, atol=1e-6)
+
+
+def test_d4_norms_never_take_the_bn_kernels(monkeypatch):
+    """As in the JAX package (``pointnet.py:60``), D4's norms take the plain
+    statistics on every device: a train forward and backward of D4, feature
+    transform and extended ladder included, calls neither BN-statistics
+    wrapper, while the generator's BatchNorms call both."""
+    from pointcloududa_torch.ops import bn_kernel
+
+    calls = []
+    for name in ("stats_forward", "stats_backward"):
+        fn = getattr(bn_kernel, name)
+        monkeypatch.setattr(bn_kernel, name, lambda *a, _fn=fn, _name=name: calls.append(_name) or _fn(*a))
+    d4 = PointNetCls(feature_transform=True, ext=True, drop=0.0)
+    d4(torch.rand(4, 16, 3, generator=torch.Generator().manual_seed(0)))[0].sum().backward()
+    assert calls == []
+    gen = SegmentationPointModel(filters=4, n_block=2, generator=torch.Generator().manual_seed(0))
+    gen(torch.rand(2, 32, 32, 3))[0].sum().backward()
+    assert set(calls) == {"stats_forward", "stats_backward"}
 
 
 def test_reference_parameter_counts():

@@ -125,17 +125,16 @@ def _updates_close(init: dict, got: dict, want: dict, share: float, floor: float
             assert not bad.any(), f"{where}: update of {k} differs at {bad.sum()} of {bad.size}"
 
 
-def _port_cfg(case: str, impls: str = "kernels"):
-    return mscmrseg_default(**ranks.TINY, **ranks.CASES[case]["cfg"], **ranks.IMPLS[impls])
+def _port_cfg(case: str):
+    return mscmrseg_default(**ranks.TINY, **ranks.CASES[case]["cfg"])
 
 
-@pytest.mark.parametrize("impls", list(ranks.IMPLS))
 @pytest.mark.parametrize("case", list(ranks.CASES))
-def test_two_ranks_take_the_one_process_step(runs, case, impls):
+def test_two_ranks_take_the_one_process_step(runs, case):
     one, two, _ = runs
-    key = f"step/{case}/{impls}"
+    key = f"step/{case}"
     want = one[key]
-    cfg = _port_cfg(case, impls)
+    cfg = _port_cfg(case)
     share, floor = (1e-4, 0.0) if case == "d1d2" else (1e-2, 1e-6)
     for rank, got in enumerate(r[key] for r in two):
         for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
@@ -160,7 +159,7 @@ def jax_runs():
     for case in ("d1d2", "d4"):
         spec = ranks.CASES[case]
         jcfg = jax_mscmrseg_default(**ranks.TINY, **spec["cfg"], num_devices=WORLD)
-        st = create_train_state(_port_cfg(case, "plain"), seed=0, device="cpu")
+        st = create_train_state(_port_cfg(case), seed=0, device="cpu")
         models = list(jstate.build_models(jcfg))
         if spec["d4_drop"] is not None:
             models[3] = models[3].clone(drop=spec["d4_drop"])
@@ -181,15 +180,14 @@ def test_two_ranks_take_jaxs_step_on_a_two_device_mesh(runs, jax_runs, case):
     _, two, _ = runs
     history, gen = jax_runs[case]
     cfg = _port_cfg(case)
-    for impls in ranks.IMPLS:
-        for rank, got in enumerate(two):
-            run = got[f"step/{case}/{impls}"]
-            for i, (g, w) in enumerate(zip(run["metrics"], history)):
-                _metrics_close(g, w, cfg, JAX_RTOL, JAX_ATOL, f"{impls} rank {rank} step {i}")
-            if case == "d1d2":
-                # (the weight bridge carries no num_batches_tracked)
-                init = {k: v for k, v in run["init"].items() if k.startswith("gen.") and "num_batches" not in k}
-                _updates_close(init, run["states"][-1], gen, 5e-2, 0.0, f"{impls} rank {rank} against JAX")
+    for rank, got in enumerate(two):
+        run = got[f"step/{case}"]
+        for i, (g, w) in enumerate(zip(run["metrics"], history)):
+            _metrics_close(g, w, cfg, JAX_RTOL, JAX_ATOL, f"rank {rank} step {i}")
+        if case == "d1d2":
+            # (the weight bridge carries no num_batches_tracked)
+            init = {k: v for k, v in run["init"].items() if k.startswith("gen.") and "num_batches" not in k}
+            _updates_close(init, run["states"][-1], gen, 5e-2, 0.0, f"rank {rank} against JAX")
 
 
 def test_preprocess_rows_equal_the_one_process_rows(runs):
@@ -324,8 +322,10 @@ def test_nccl_on_a_cpu_device_raises():
 
 
 def test_the_bn_kernel_serves_several_devices():
-    """``bn_stats_impl="pallas"`` with ``num_devices > 1`` builds: the kernel's
-    statistics are all-reduced over the global batch."""
+    """A config with the JAX package's ``bn_stats_impl="pallas"`` and
+    ``num_devices > 1``, which that package refuses, builds here: the port
+    reads no selector, and its BN statistics are all-reduced over the global
+    batch."""
     st = create_train_state(mscmrseg_default(**ranks.TINY, fc_inch=0, bn_stats_impl="pallas", num_devices=2), device="cpu")
     assert st.models[0] is not None
 

@@ -29,7 +29,6 @@ import jax
 from pointcloududa_tpu.config import mscmrseg_default as jax_mscmrseg_default
 from pointcloududa_tpu.train import state as jstate
 from pointcloududa_tpu.train import step as jstep
-from pointcloududa_torch.cli.common import with_kernels
 from pointcloududa_torch.config import mscmrseg_default
 from pointcloududa_torch.smoke import smoke_train, smoke_uda
 from pointcloududa_torch.train.state import create_train_state
@@ -123,8 +122,7 @@ def jax_supervised_steps():
 
 def test_three_supervised_steps_match_jax_from_its_weights(jax_supervised_steps):
     init, history = jax_supervised_steps
-    cfg = with_kernels(mscmrseg_default(crop_size=SIZE, fc_inch=1, n_block=2, filters=8, bs=BS, lr=1e-3,
-                                        compute_dtype="float32"))
+    cfg = mscmrseg_default(crop_size=SIZE, fc_inch=1, n_block=2, filters=8, bs=BS, lr=1e-3, compute_dtype="float32")
     st = create_train_state(cfg, seed=0, device="cpu")
     weights.load_jax_variables(st.models, {"gen": init})
     step = make_train_step(cfg, st.models, st.optimizers)

@@ -1,6 +1,8 @@
 """The port's train step against the JAX package's ``make_train_step``:
 generator with point head (``d4aux``: the Chamfer loss without D4) + D1 + D2
-over three steps, the padded-tail path, dropout, lr and config checks.
+over three steps, the padded-tail path, dropout, lr and config checks; the
+one route the port takes whatever the JAX package's kernel selectors say, and
+the kernel wrappers it looks up by name.
 
 Both packages start from the same weights (the port's init, carried into
 flax by the JAX package's own importer of reference checkpoints,
@@ -127,8 +129,7 @@ def _compare(cfg, jm, tm, where, special=None):
 @pytest.fixture(scope="module")
 def jax_three_steps():
     """The JAX step's metrics over three steps from the port's init, with its
-    Pallas kernels in interpret mode: compiled and run once, and held against
-    both of the port's routes."""
+    Pallas kernels in interpret mode: compiled and run once."""
     from jax.experimental.pallas import tpu as pltpu
 
     cfg = _cfg(d4aux=True, **IMPLS[0])
@@ -141,18 +142,129 @@ def jax_three_steps():
     return history
 
 
-@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
-def test_three_steps_match_jax(impls, jax_three_steps):
-    """The port's kernel route (``*_impl="pallas"``: on the CPU the kernels'
-    autograd wiring around their plain versions) and its plain route, each
-    over three steps."""
-    cfg = _cfg(d4aux=True, **impls)
+def test_three_steps_match_jax(jax_three_steps):
+    """The port's step (on the CPU the kernels' autograd wiring around their
+    plain versions) over three steps."""
+    cfg = _cfg(d4aux=True)
     st = create_train_state(cfg, seed=0, device="cpu")
     step = make_train_step(cfg, st.models, st.optimizers)
     for i, jm in enumerate(jax_three_steps):
         st, tm = step(st, synthetic_batch(cfg, BS, seed=i))
         _compare(cfg, jm, tm, f"step {i}")
     assert st.step == 3
+
+
+# the JAX package's kernel selectors: (chamfer_impl, bn_stats_impl)
+SELECTORS = [("auto", "xla"), ("jnp", "xla"), ("pallas", "xla"), ("pallas", "pallas")]
+
+
+def _one_step(cfg):
+    """One CPU step from the seed-0 init: its metrics and every network's state."""
+    st = create_train_state(cfg, seed=0, device="cpu")
+    st, metrics = make_train_step(cfg, st.models, st.optimizers)(st, synthetic_batch(cfg, BS, seed=0))
+    return metrics, [m.state_dict() for m in st.models if m is not None]
+
+
+@pytest.fixture(scope="module")
+def default_step():
+    return _one_step(_cfg(d4aux=True))
+
+
+@pytest.mark.parametrize("chamfer_impl,bn_stats_impl", SELECTORS)
+def test_the_route_is_the_tensors_device(chamfer_impl, bn_stats_impl, default_step):
+    """The port reads none of the JAX package's kernel selectors: whatever
+    they say, a CPU step takes the one route and gives the same bits."""
+    want_metrics, want_states = default_step
+    metrics, states = _one_step(_cfg(d4aux=True, chamfer_impl=chamfer_impl, bn_stats_impl=bn_stats_impl))
+    assert metrics.keys() == want_metrics.keys()
+    assert all(torch.equal(metrics[k], want_metrics[k]) for k in metrics)
+    for got, want in zip(states, want_states, strict=True):
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_the_kernels_functions_match_the_plain_route():
+    """``ChamferLoss`` and ``bn_stats``, the autograd Functions around the
+    wrappers, on CPU tensors against autograd through the plain formulas
+    (``losses.chamfer_loss``, ``stats_forward_plain``), at the tolerances
+    that hold each kernel route against the plain one: the loss to rtol 1e-5
+    (tests/test_torch_port_chamfer.py) and its gradients to rtol 1e-4, atol
+    1e-5 (the JAX package's, tests/test_chamfer_pallas.py: the plain
+    gradient goes through the expanded pairwise distance), the statistics
+    equal and their gradient to rtol 1e-6, atol 1e-7 (tests/test_torch_port_bn.py)."""
+    from pointcloududa_torch.ops import bn_kernel, chamfer_kernel, losses
+
+    g = torch.Generator().manual_seed(0)
+    clouds = torch.rand(3, 40, 3, generator=g), torch.rand(3, 33, 3, generator=g)
+    outs = []
+    for fn in (chamfer_kernel.ChamferLoss.apply, losses.chamfer_loss):
+        x, y = (c.clone().requires_grad_(True) for c in clouds)
+        loss = fn(x, y)
+        loss.backward()
+        outs.append((loss.detach(), x.grad, y.grad))
+    (got, *got_grads), (want, *want_grads) = outs
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+    x = torch.randn(4, 16, 5, 5, generator=g)
+    w_m, w_q = torch.randn(16, generator=g), torch.randn(16, generator=g)
+    outs = []
+    for fn in (bn_kernel.bn_stats, bn_kernel.stats_forward_plain):
+        xr = x.clone().requires_grad_(True)
+        m, q = fn(xr)
+        ((m * w_m).sum() + (q * w_q).sum()).backward()
+        outs.append((m.detach(), q.detach(), xr.grad))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    torch.testing.assert_close(outs[0][2], outs[1][2], rtol=1e-6, atol=1e-7)
+
+
+# the kernel wrappers the checks on the card and the benchmark replace by name
+WRAPPERS = [("chamfer_kernel", "forward_fused"), ("chamfer_kernel", "side_grad"), ("chamfer_kernel", "nn_directional"),
+            ("bn_kernel", "stats_forward"), ("bn_kernel", "stats_backward"), ("fps_kernel", "fps")]
+
+
+@pytest.fixture(scope="module")
+def wrapper_calls():
+    """The calls of each kernel wrapper, replaced by name in its module,
+    from one CPU train step with the point head, one MM-WHS preprocess that
+    regenerates clouds, and one Chamfer loss of clouds past the fused
+    route's 512 x 512 pairs."""
+    from pointcloududa_torch.config import mmwhs_default as port_mmwhs_default
+    from pointcloududa_torch.data.synthetic import synthetic_raw_batch
+    from pointcloududa_torch.ops import bn_kernel, chamfer_kernel, fps_kernel
+    from pointcloududa_torch.train.loop import make_device_preprocess
+
+    modules = {"bn_kernel": bn_kernel, "chamfer_kernel": chamfer_kernel, "fps_kernel": fps_kernel}
+    originals = {w: getattr(modules[w[0]], w[1]) for w in WRAPPERS}
+    calls = dict.fromkeys(WRAPPERS, 0)
+
+    def counted(w):
+        def call(*args):
+            calls[w] += 1
+            return originals[w](*args)
+        return call
+
+    for w in WRAPPERS:
+        setattr(modules[w[0]], w[1], counted(w))
+    try:
+        _one_step(_cfg(d4aux=True))
+        cfg = port_mmwhs_default(softmax=True, d2=True, d4=True, aug="light", filters=4, crop_size=96, fc_inch=1, bs=2)
+        make_device_preprocess(cfg, True, True, device="cpu")(torch.Generator().manual_seed(0), synthetic_raw_batch(cfg, 2))
+        x = torch.rand(1, 600, 3, requires_grad=True)
+        chamfer_kernel.chamfer_loss(x, torch.rand(1, 530, 3)).backward()
+    finally:
+        for w, fn in originals.items():
+            setattr(modules[w[0]], w[1], fn)
+    return calls
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS, ids=[name for _, name in WRAPPERS])
+def test_the_main_path_looks_each_wrapper_up_when_it_calls_it(wrapper, wrapper_calls):
+    """The step, the preprocess and the Chamfer loss call each kernel through
+    its module's attribute at call time, so that a check that swaps a
+    wrapper by name (the plain arms of ``chip_smoke.py``, the benchmark's
+    recorders) sees every call."""
+    assert wrapper_calls[wrapper] > 0
 
 
 def test_mmwhs_softmax_etpls_three_steps_match_jax():
@@ -267,8 +379,7 @@ def test_rejected_configs(bad):
         create_train_state(_cfg(**bad), device="cpu")
 
 
-@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
-def test_bfloat16_state_builds_and_steps(impls):
+def test_bfloat16_state_builds_and_steps():
     """``compute_dtype="bfloat16"``: every network computes in bf16 (its
     conv and linear layers, its input cast), its weights, their gradients
     and the optimisers' moments stay f32; two steps of D1+D2+D4 give finite
@@ -276,7 +387,7 @@ def test_bfloat16_state_builds_and_steps(impls):
     bf16 step: tests/test_torch_port_bf16.py.)"""
     from pointcloududa_torch.models.unet import Conv2d, Linear
 
-    cfg = _cfg(d4=True, compute_dtype="bfloat16", **impls)
+    cfg = _cfg(d4=True, compute_dtype="bfloat16")
     st = create_train_state(cfg, seed=0, device="cpu")
     for model in st.models:
         layers = [m for m in model.modules() if isinstance(m, (Conv2d, Linear))]

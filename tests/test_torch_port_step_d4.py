@@ -79,8 +79,7 @@ def _updates_close(before, port_after, jax_after, where):
 @pytest.fixture(scope="module")
 def jax_triple_step():
     """The metrics of one JAX step of the triple-adversary config from the
-    port's init, with its Pallas kernels in interpret mode: run once, held
-    against both of the port's routes."""
+    port's init, with its Pallas kernels in interpret mode: run once."""
     from jax.experimental.pallas import tpu as pltpu
 
     cfg = _cfg(d4=True, heinit=True, **IMPLS[0])
@@ -90,10 +89,9 @@ def jax_triple_step():
     return {k: float(v) for k, v in jm.items()}
 
 
-@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
-def test_triple_adversary_step_matches_jax(impls, jax_triple_step):
+def test_triple_adversary_step_matches_jax(jax_triple_step):
     jm = jax_triple_step
-    cfg = _cfg(d4=True, heinit=True, **impls)
+    cfg = _cfg(d4=True, heinit=True)
     st = create_train_state(cfg, seed=SEED, device="cpu")
     st.models[3].dropout.p = 0.0
     _, tm = make_train_step(cfg, st.models, st.optimizers)(st, synthetic_batch(cfg, BS, seed=4))
@@ -113,19 +111,18 @@ def jax_mmwhs_d4():
     return cfg, lambda batch: jfn(jax.tree_util.tree_map(jnp.copy, jst), batch)[1]
 
 
-def _port_mmwhs_d4(impls):
-    cfg = mmwhs_default(**{**dataclasses.asdict(_mmwhs_cfg(**MMWHS_D4)), **impls})
+def _port_mmwhs_d4():
+    cfg = mmwhs_default(**dataclasses.asdict(_mmwhs_cfg(**MMWHS_D4)))
     st = create_train_state(cfg, seed=SEED, device="cpu")
     st.models[3].dropout.p = 0.0
     return cfg, st, make_train_step(cfg, st.models, st.optimizers)
 
 
-@pytest.mark.parametrize("impls", IMPLS, ids=["kernels", "plain"])
-def test_mmwhs_d4_step_matches_jax(impls, jax_mmwhs_d4):
+def test_mmwhs_d4_step_matches_jax(jax_mmwhs_d4):
     jcfg, jax_metrics = jax_mmwhs_d4
     batch = synthetic_batch(jcfg, BS, seed=6)
     jm = jax_metrics(batch)
-    cfg, st, step = _port_mmwhs_d4(impls)
+    cfg, st, step = _port_mmwhs_d4()
     _, tm = step(st, batch)
     _compare(cfg, jm, tm, "step 0")
     assert {"d2_loss", "d4_loss", "ver_s_loss", "ver_t_loss"} <= set(tm) and "d1_loss" not in tm
@@ -139,7 +136,7 @@ def test_mmwhs_slice_raw_batch_to_step_matches_jax(jax_mmwhs_d4):
     jcfg, jax_metrics = jax_mmwhs_d4
     raw, jbatch, draws = mmwhs_light_case(jcfg, jax.random.PRNGKey(9), jcfg.crop_size, seed=9)
     jm = jax_metrics(jbatch)
-    cfg, st, step = _port_mmwhs_d4(IMPLS[1])
+    cfg, st, step = _port_mmwhs_d4()
     batch = make_device_preprocess(cfg, train=True, device_augment=True, device="cpu")(None, raw, draws=draws)
     assert set(batch) == set(jbatch) == {"img_s", "mask_s", "img_t", "vert_s", "vert_t"}
     np.testing.assert_array_equal(np.rint(batch["vert_s"].numpy() * 255), np.rint(np.asarray(jbatch["vert_s"]) * 255))

@@ -27,7 +27,6 @@ CASES = {
     # dropout in the generator and in D4, whose masks each rank takes from the global batch's draw
     "dropout": dict(cfg=dict(d1=True, d2=True, d4=True, heinit=True, drop=True, sgd=True, fc_inch=9), steps=2, d4_drop=None),
 }
-IMPLS = {"kernels": dict(chamfer_impl="pallas", bn_stats_impl="pallas"), "plain": dict(chamfer_impl="jnp", bn_stats_impl="xla")}
 
 
 def _local(batch, mesh):
@@ -40,7 +39,7 @@ def _states(models) -> dict:
             for k, v in m.state_dict().items()}
 
 
-def step_case(mesh, case: str, impls: str) -> dict:
+def step_case(mesh, case: str) -> dict:
     """The train step of ``CASES[case]`` from the seed-0 init on the global
     batches of seeds 0, 1, ...: each step's metrics and all-reduces, and the
     networks' state before the first step and after every step."""
@@ -49,7 +48,7 @@ def step_case(mesh, case: str, impls: str) -> dict:
 
     torch.set_num_threads(1)
     spec = CASES[case]
-    cfg = mscmrseg_default(**TINY, **spec["cfg"], **IMPLS[impls])
+    cfg = mscmrseg_default(**TINY, **spec["cfg"])
     st = create_train_state(cfg, seed=0, device="cpu")
     if spec["d4_drop"] is not None:
         st.models[3].dropout.p = spec["d4_drop"]
@@ -114,7 +113,7 @@ def bn_case(mesh, device: str = "cpu", dtype: str = "float32", shape=(4, 8, 6, 6
         lo, hi = process_row_slice(mesh, shape[0])
         x, w = x[lo:hi].contiguous(), w[lo:hi]
     x.requires_grad_(True)
-    bn = TwinBatchNorm(shape[1], bn_kernel=True).to(device)
+    bn = TwinBatchNorm(shape[1]).to(device)
     bn_kernel.reset_launches()
     with collectives.data_parallel(mesh):
         mean, var = bn_kernel.batch_stats(x.detach())
@@ -153,8 +152,7 @@ class SynthAdapter:
 
 
 def trainer_cfg():
-    return mscmrseg_default(**dict(TINY, fc_inch=0, ns=10, epochs=2, aug="", d1=True, d2=True, decay_e=1,
-                                   chamfer_impl="pallas", bn_stats_impl="pallas"))
+    return mscmrseg_default(**dict(TINY, fc_inch=0, ns=10, epochs=2, aug="", d1=True, d2=True, decay_e=1))
 
 
 def trainer_case(mesh, root: str) -> dict:
@@ -253,7 +251,7 @@ def run_all(mesh, root: str) -> dict:
     takes seconds: ``MetricWriter`` then writes its JSONL records alone."""
     if mesh is not None:
         sys.modules["torch.utils.tensorboard"] = None
-    out = {f"step/{case}/{impls}": step_case(mesh, case, impls) for case in CASES for impls in IMPLS}
+    out = {f"step/{case}": step_case(mesh, case) for case in CASES}
     out["preprocess"] = preprocess_case(mesh)
     out["norm1d"] = norm1d_case(mesh)
     out["bn"] = bn_case(mesh)
